@@ -1,0 +1,16 @@
+"""geomapnet_tpu_torch: the PyTorch / CUDA (H100) port of geomapnet_tpu.
+
+The JAX package :mod:`geomapnet_tpu` is the reference this package is held
+against; module paths mirror it (``ops/image.py`` <-> ``ops/image.py`` and
+so on). This package imports torch and numpy and never jax, flax, optax or
+orbax.
+
+Ported so far: the MapNet / PoseNet (ResNet-18/34/50) evaluation of raw
+RobotCar Bayer mosaics — ``python -m geomapnet_tpu_torch.cli.eval --dataset
+RobotCar --raw_bayer ...`` — through the hand-written CUDA demosaic kernel
+(:mod:`geomapnet_tpu_torch.ops.cuda_image`).
+
+Importing the package loads no submodule; import what you use.
+"""
+
+__version__ = "0.1.0"

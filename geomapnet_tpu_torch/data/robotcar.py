@@ -1,0 +1,150 @@
+"""Oxford RobotCar scene of raw Bayer mosaics with ground-truth poses.
+
+The raw-Bayer, ground-truth-pose part of
+:class:`geomapnet_tpu.data.robotcar.RobotCar`; it reads the same disk layout
+(upstream dataset_loaders/robotcar.py): a scene directory
+(``data_path/<scene>``) with ``train_split.txt`` / ``test_split.txt`` naming
+sequence dirs, each holding ``stereo.timestamps``, ``gps/ins.csv`` and
+``stereo/centre/<ts>.png`` mosaics; an assets dir with the scene's
+``pose_stats.txt``.
+
+Frames are the untouched single-channel GBRG mosaics, uint8 (H, W): the
+device pipeline (:func:`geomapnet_tpu_torch.ops.image.make_device_pipeline`)
+demosaics, resizes and normalizes them. Poses are normalized by the *real*
+translation mean/std, written when the train split is built and read back
+otherwise (upstream robotcar.py:89-99). The VO/GPS ("real") poses, host
+demosaic/undistort and the native batch decoder are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import warnings
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+
+from ..geometry.process import process_poses
+from .robotcar_sdk import interpolate_ins_poses
+
+__all__ = ["RobotCar"]
+
+
+def _read_timestamps(seq_dir: Path) -> list[int]:
+    with open(seq_dir / "stereo.timestamps") as f:
+        return [int(line.rstrip().split(" ")[0]) for line in f]
+
+
+def _load_sequence(seq_dir: Path) -> tuple[np.ndarray, list[Path]]:
+    """(F, 12) flattened INS ``[R|t]`` rows at the image timestamps, and the
+    image paths, for one sequence."""
+    stamps = _read_timestamps(seq_dir)
+    se3 = np.asarray(interpolate_ins_poses(seq_dir / "gps" / "ins.csv",
+                                           stamps, stamps[0]))
+    raw = se3[:, :3, :].reshape(len(se3), -1)
+    paths = [seq_dir / "stereo" / "centre" / f"{t}.png" for t in stamps]
+    return raw, paths
+
+
+def _real_pose_stats(stats_file: Path, write_from: np.ndarray | None):
+    """Translation mean/std: computed from ``write_from`` and saved, or read
+    back from ``stats_file``. A ~zero std along an axis (a constant
+    trajectory coordinate) is clamped to 1 with a warning, as the JAX
+    package does, so normalization never divides by zero."""
+    if write_from is not None:
+        mean_t = np.mean(write_from[:, [3, 7, 11]], axis=0)
+        std_t = np.std(write_from[:, [3, 7, 11]], axis=0)
+        stats_file.parent.mkdir(parents=True, exist_ok=True)
+        # %8.7f quantizes anything below 5e-8 to a literal 0.0 on disk
+        std_t = _clamp_degenerate_std(std_t, threshold=1e-6)
+        np.savetxt(stats_file, np.vstack((mean_t, std_t)), fmt="%8.7f")
+        return mean_t, std_t
+    stats = np.loadtxt(stats_file)
+    return stats[0], _clamp_degenerate_std(stats[1], threshold=1e-8)
+
+
+def _clamp_degenerate_std(std_t: np.ndarray, threshold: float) -> np.ndarray:
+    degenerate = std_t < threshold
+    if degenerate.any():
+        warnings.warn(
+            f"pose std is ~0 along axes {np.nonzero(degenerate)[0]} "
+            f"(constant trajectory coordinate); clamping to 1 to avoid "
+            f"NaN normalization", stacklevel=3,
+        )
+        std_t = np.where(degenerate, 1.0, std_t)
+    return std_t
+
+
+class RobotCar:
+    """One RobotCar scene (e.g. 'loop', 'full') as a frame dataset of raw
+    Bayer mosaics.
+
+    :param scene: sequence collection name
+    :param data_path: raw dataset root (contains ``<scene>/<seq dirs>``)
+    :param train: train vs test split; the train split writes
+        ``pose_stats.txt``, the test split reads it
+    :param asset_dir: processed-assets root (defaults to ``data/RobotCar``)
+    :param raw_size: expected (H, W) of the mosaics (RobotCar Grasshopper2:
+        960x1280); a frame of another shape counts as corrupt
+    """
+
+    def __init__(
+        self,
+        scene: str,
+        data_path: str,
+        train: bool,
+        asset_dir: str | None = None,
+        raw_size: tuple[int, int] = (960, 1280),
+    ):
+        self.raw_size = tuple(raw_size)
+        scene_dir = Path(os.path.expanduser(data_path)) / scene
+        asset_scene_dir = Path(asset_dir or Path("data") / "RobotCar") / scene
+
+        split_name = "train_split.txt" if train else "test_split.txt"
+        with open(scene_dir / split_name) as f:
+            seq_names = [l.rstrip() for l in f if not l.startswith("#")]
+
+        sequences = [_load_sequence(scene_dir / seq) for seq in seq_names]
+        self.imgs = [p for _, paths in sequences for p in paths]
+
+        all_raw = np.vstack([raw for raw, _ in sequences])
+        mean_t, std_t = _real_pose_stats(
+            asset_scene_dir / "pose_stats.txt",
+            write_from=all_raw if train else None,
+        )
+        identity = np.eye(3), np.zeros(3), 1
+        self.poses = np.concatenate([
+            process_poses(raw, mean_t, std_t, *identity)
+            for raw, _ in sequences
+        ]).astype(np.float32)
+        self.gt_idx = np.arange(len(self.poses))
+
+    def get_image(self, index: int) -> np.ndarray | None:
+        """The (H, W) uint8 mosaic, or None when it cannot be read or has
+        another shape than ``raw_size``."""
+        from PIL import Image
+
+        try:
+            raw = np.asarray(Image.open(self.imgs[index]))
+        except (IOError, OSError) as e:
+            print(f"Could not load image {self.imgs[index]}: {e}")
+            return None
+        if raw.ndim != 2 or raw.shape != self.raw_size:
+            return None
+        return raw.astype(np.uint8)
+
+    def get_images(self, indices, num_workers: int = 4) -> list:
+        """:meth:`get_image` for many frames; PNG decodes release the GIL,
+        so ``num_workers`` threads decode in parallel."""
+        indices = [int(i) for i in indices]
+        if num_workers <= 1 or len(indices) <= 1:
+            return [self.get_image(i) for i in indices]
+        with ThreadPoolExecutor(num_workers) as pool:
+            return list(pool.map(self.get_image, indices))
+
+    def __getitem__(self, index: int):
+        return self.get_image(index), self.poses[index]
+
+    def __len__(self) -> int:
+        return len(self.poses)

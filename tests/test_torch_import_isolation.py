@@ -1,0 +1,242 @@
+"""The port imports without jax, and its numpy copies equal the originals.
+
+``geomapnet_tpu``'s host code is numpy, but its package imports pull in jax,
+so the port carries copies; each copy is held here to the original on the
+same inputs, exactly.
+"""
+
+import ast
+import dataclasses
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import geomapnet_tpu_torch
+from geomapnet_tpu.cli.config import parse_ini as jax_parse_ini
+from geomapnet_tpu.data import MF as JaxMF
+from geomapnet_tpu.data import Loader as JaxLoader
+from geomapnet_tpu.data import vo_np as jax_vo
+from geomapnet_tpu.data.robotcar import RobotCar as JaxRobotCar
+from geomapnet_tpu.data.robotcar_sdk import (
+    interpolate_ins_poses as jax_interpolate_ins,
+)
+from geomapnet_tpu.data.transforms import Normalize as JaxNormalize
+from geomapnet_tpu.data.transforms import std_from_stats as jax_std_from_stats
+from geomapnet_tpu.data.tuples import TupleSampler as JaxTupleSampler
+from geomapnet_tpu.geometry import metrics as jax_metrics
+from geomapnet_tpu.geometry import process as jax_process
+from geomapnet_tpu.geometry import rotations as jax_rot
+from geomapnet_tpu_torch.cli.config import parse_ini
+from geomapnet_tpu_torch.data import vo_np
+from geomapnet_tpu_torch.data.composite import MF
+from geomapnet_tpu_torch.data.loader import Loader
+from geomapnet_tpu_torch.data.robotcar import RobotCar
+from geomapnet_tpu_torch.data.robotcar_sdk import interpolate_ins_poses
+from geomapnet_tpu_torch.data.transforms import Normalize, std_from_stats
+from geomapnet_tpu_torch.data.tuples import TupleSampler
+from geomapnet_tpu_torch.geometry import metrics, process
+from geomapnet_tpu_torch.geometry import rotations as rot
+from test_torch_eval import write_bayer_scene
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = Path(geomapnet_tpu_torch.__file__).parent
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax")
+
+
+def _port_modules() -> list[str]:
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [str(PKG)], prefix="geomapnet_tpu_torch."))
+
+
+def test_every_module_imports_with_jax_blocked():
+    """A fresh interpreter with jax, flax, optax and orbax made unimportable
+    imports every module of the port."""
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "loaded = [k for k, v in sys.modules.items()\n"
+        f"          if v is not None and k.split('.')[0] in {BLOCKED!r}]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_no_module_names_jax():
+    """No import statement anywhere in the port names a JAX-stack package."""
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in BLOCKED, f"{path}: {n}"
+
+
+def _rotations(n=16, seed=0):
+    rng = np.random.RandomState(seed)
+    eul = rng.uniform(-np.pi, np.pi, (n, 3))
+    return np.stack([jax_rot.euler2mat(*e) for e in eul]), eul
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("mat2quat", lambda R, q, v, e: (R[0],)),
+    ("mat2quat_batch", lambda R, q, v, e: (R,)),
+    ("quat2mat", lambda R, q, v, e: (q,)),
+    ("euler2mat", lambda R, q, v, e: tuple(e[0])),
+    ("mat2euler", lambda R, q, v, e: (R[1],)),
+    ("qmult_np", lambda R, q, v, e: (q, q[::-1])),
+    ("qinv_np", lambda R, q, v, e: (q,)),
+    ("qexp_np", lambda R, q, v, e: (v,)),
+    ("qlog_np", lambda R, q, v, e: (q,)),
+    ("rotate_vector_np", lambda R, q, v, e: (v, q)),
+])
+def test_rotations_copy(fn, args):
+    R, eul = _rotations()
+    q = jax_rot.mat2quat_batch(R)
+    v = np.random.RandomState(1).randn(len(R), 3)
+    a = args(R, q, v, eul)
+    np.testing.assert_array_equal(getattr(rot, fn)(*a),
+                                  getattr(jax_rot, fn)(*a))
+
+
+def test_process_and_metrics_copies():
+    R, _ = _rotations(seed=2)
+    rng = np.random.RandomState(3)
+    poses = np.concatenate([R, rng.randn(len(R), 3, 1)], axis=2)
+    poses = poses.reshape(-1, 12)
+    align = (R[0], rng.randn(3), 1.7)
+    args = (poses, rng.randn(3), rng.uniform(0.5, 2, 3)) + align
+    p = process.process_poses(*args)
+    np.testing.assert_array_equal(p, jax_process.process_poses(*args))
+    q = rot.qexp_np(p[:, 3:])
+    np.testing.assert_array_equal(
+        metrics.translation_error(p[:, :3], p[::-1, :3]),
+        jax_metrics.translation_error(p[:, :3], p[::-1, :3]))
+    np.testing.assert_array_equal(
+        metrics.quaternion_angular_error(q, q[::-1]),
+        jax_metrics.quaternion_angular_error(q, q[::-1]))
+    for fn in ("vos_simple_np", "vos_logq_np", "vos_logq_fc_np"):
+        np.testing.assert_array_equal(getattr(vo_np, fn)(p[:5]),
+                                      getattr(jax_vo, fn)(p[:5]))
+
+
+@pytest.mark.parametrize("kw", [dict(steps=3, skip=2),
+                                dict(steps=5, skip=3, no_duplicates=True),
+                                dict(steps=3, skip=4, variable_skip=True)])
+def test_tuple_sampler_copy(kw):
+    a = TupleSampler(dataset_len=20, **kw)
+    b = JaxTupleSampler(dataset_len=20, **kw)
+    assert len(a) == len(b)
+    np.testing.assert_array_equal(a.index_matrix(np.random.RandomState(0)),
+                                  b.index_matrix(np.random.RandomState(0)))
+
+
+class _Frames:
+    """In-memory frame dataset: frame i is an image filled with i."""
+
+    def __init__(self, n=13, bad=()):
+        self.poses = np.random.RandomState(4).randn(n, 6).astype(np.float32)
+        self.gt_idx = np.arange(n)
+        self.bad = set(bad)
+
+    def __len__(self):
+        return len(self.poses)
+
+    def get_image(self, i):
+        return None if i in self.bad else np.full((2, 3), i, np.uint8)
+
+    def __getitem__(self, i):
+        return self.get_image(i), self.poses[i]
+
+
+@pytest.mark.parametrize("kw", [dict(steps=3, skip=2),
+                                dict(steps=3, skip=3, variable_skip=True,
+                                     deterministic_indices=True),
+                                dict(steps=2, skip=1, include_vos=True)])
+def test_mf_and_loader_copies(kw):
+    """MF tuples and padded eval batches (a corrupt frame included) equal the
+    originals batch for batch."""
+    frames = _Frames(bad=(5,))
+    ours = Loader(MF(frames, **kw), 4, drop_last=False, num_workers=2)
+    theirs = JaxLoader(JaxMF(frames, **kw), 4, drop_last=False,
+                       num_workers=2)
+    assert len(ours) == len(theirs)
+    for (ia, pa, na), (ib, pb, nb) in zip(ours, theirs, strict=True):
+        assert na == nb
+        np.testing.assert_array_equal(ia, ib)
+        np.testing.assert_array_equal(pa, pb)
+
+
+def test_loader_shuffled_drop_last_copy():
+    frames = _Frames()
+    ours = list(Loader(frames, 3, shuffle=True, seed=11))
+    theirs = list(JaxLoader(frames, 3, shuffle=True, seed=11))
+    assert len(ours) == len(theirs) == 4
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a[1], b[1])
+
+
+def test_transforms_copies():
+    stats = np.array([[0.45, 0.45, 0.46], [0.078, 0.077, 0.072]])
+    for x, y in zip(std_from_stats(stats), jax_std_from_stats(stats)):
+        np.testing.assert_array_equal(x, y)
+    img = np.random.RandomState(5).rand(4, 5, 3).astype(np.float32)
+    np.testing.assert_array_equal(Normalize(*stats)(img),
+                                  JaxNormalize(*stats)(img))
+
+
+def test_ins_interpolation_and_robotcar_poses(tmp_path):
+    raw, assets = write_bayer_scene(tmp_path, n=7, h=8, w=12)
+    ins = raw / "loop" / "2014-06-26-08-53-56" / "gps" / "ins.csv"
+    stamps = [1000, 1500, 2600, 7000]
+    np.testing.assert_array_equal(
+        np.asarray(interpolate_ins_poses(ins, stamps, 1200)),
+        np.asarray(jax_interpolate_ins(ins, stamps, 1200)))
+    for train in (True, False):  # the train split writes pose_stats.txt
+        ours = RobotCar("loop", str(raw), train=train,
+                        asset_dir=str(assets / "RobotCar"), raw_size=(8, 12))
+        theirs = JaxRobotCar("loop", str(raw), train=train,
+                             asset_dir=str(assets / "RobotCar"),
+                             raw_bayer=True, raw_size=(8, 12))
+        np.testing.assert_array_equal(ours.poses, theirs.poses)
+        np.testing.assert_array_equal(ours.get_image(3), theirs.get_image(3))
+        assert [str(p) for p in ours.imgs] == [str(p) for p in theirs.imgs]
+
+
+def test_robotcar_wrong_size_frame_is_corrupt(tmp_path):
+    raw, assets = write_bayer_scene(tmp_path, n=3, h=8, w=12)
+    ds = RobotCar("loop", str(raw), train=True,
+                  asset_dir=str(assets / "RobotCar"), raw_size=(8, 14))
+    assert ds.get_image(0) is None
+    assert ds.get_images([0, 1], num_workers=2) == [None, None]
+
+
+@pytest.mark.parametrize("ini", sorted((REPO / "configs").glob("*.ini")),
+                         ids=lambda p: p.name)
+def test_parse_ini_copy(ini):
+    assert dataclasses.asdict(parse_ini(ini)) == dataclasses.asdict(
+        jax_parse_ini(ini))
+
+
+def test_package_import_loads_no_submodule():
+    code = ("import sys, geomapnet_tpu_torch\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('geomapnet_tpu_torch.')))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.stdout.strip() == "[]", proc.stderr
