@@ -5,10 +5,12 @@ against; module paths mirror it (``ops/image.py`` <-> ``ops/image.py`` and
 so on). This package imports torch and numpy and never jax, flax, optax or
 orbax.
 
-Ported so far: the MapNet / PoseNet (ResNet-18/34/50) evaluation of raw
-RobotCar Bayer mosaics — ``python -m geomapnet_tpu_torch.cli.eval --dataset
-RobotCar --raw_bayer ...`` — through the hand-written CUDA demosaic kernel
-(:mod:`geomapnet_tpu_torch.ops.cuda_image`).
+Ported so far: the MapNet / PoseNet (ResNet-18/34/50) evaluation, float32
+or bf16, of 7Scenes and the synthetic scene (loader path, or the whole scene
+in a device frame cache with the frame-dedup epoch) and of raw RobotCar
+Bayer mosaics through the hand-written CUDA demosaic kernel
+(:mod:`geomapnet_tpu_torch.ops.cuda_image`): ``python -m
+geomapnet_tpu_torch.cli.eval ...``.
 
 Importing the package loads no submodule; import what you use.
 """

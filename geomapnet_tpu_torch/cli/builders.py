@@ -1,8 +1,10 @@
-"""Experiment assembly for the port: model, device pipeline, frame dataset.
+"""Experiment assembly for the port: model, transforms, device pipeline,
+frame dataset.
 
-The PyTorch counterpart of the parts of :mod:`geomapnet_tpu.cli.builders`
-that the RobotCar raw-Bayer eval runs. Other datasets and pipelines are not
-ported yet and raise ``NotImplementedError`` naming ROADMAP.md.
+The PyTorch counterpart of the eval parts of :mod:`geomapnet_tpu.cli.builders`:
+7Scenes, the synthetic scene and RobotCar raw mosaics. RobotCar's processed
+RGB frames and VO/GPS poses are not ported yet and raise
+``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -12,30 +14,85 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..data.transforms import std_from_stats
+from ..data.transforms import ImageTransform, Normalize, std_from_stats
 from ..models.posenet import MapNet, PoseNet
 from ..models.resnet import resnet18, resnet34, resnet50
 from .config import ExperimentConfig
 
-__all__ = ["build_model", "build_raw_device_preprocess", "build_frame_dataset"]
+__all__ = [
+    "build_model",
+    "build_transform",
+    "build_device_preprocess",
+    "build_raw_device_preprocess",
+    "build_frame_dataset",
+]
 
 TRUNKS = {"resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50}
 
 
 def build_model(model_name: str, config: ExperimentConfig,
-                trunk: str = "resnet34") -> tuple[torch.nn.Module, bool]:
+                trunk: str = "resnet34", dtype: torch.dtype = torch.float32
+                ) -> tuple[torch.nn.Module, bool]:
     """Returns (module, is_tuple_model): a PoseNet, or a MapNet around one,
-    with the ``trunk`` feature extractor and ``config.dropout``."""
+    with the ``trunk`` feature extractor, ``config.dropout`` and compute
+    ``dtype`` (float32 parameters either way)."""
     if trunk not in TRUNKS:
         raise ValueError(
             f"unknown trunk {trunk!r}; pick from {sorted(TRUNKS)}")
-    posenet = PoseNet(feature_extractor=TRUNKS[trunk](),
-                      droprate=config.dropout)
+    posenet = PoseNet(feature_extractor=TRUNKS[trunk](dtype),
+                      droprate=config.dropout, dtype=dtype)
     if model_name == "posenet":
         return posenet, False
     if model_name == "mapnet":
         return MapNet(posenet), True
     raise ValueError(f"unknown model {model_name!r}")
+
+
+def build_transform(dataset: str, scene: str, config: ExperimentConfig,
+                    asset_root: str = "data", train: bool = True,
+                    seed: int = 7, keep_uint8: bool = False) -> ImageTransform:
+    """Resize(256) [+ColorJitter] + Normalize(mean, sqrt(var)) pipeline
+    (upstream scripts/train.py:114-128).
+
+    With ``keep_uint8`` the host emits resized uint8 and normalization moves
+    to the device (pair with :func:`build_device_preprocess`): 4x less
+    host->device transfer per batch.
+    """
+    if dataset == "synth":
+        return ImageTransform(resize=None, normalize=None)
+    stats = np.loadtxt(Path(asset_root) / dataset / scene / "stats.txt")
+    mean, std = std_from_stats(stats)
+    return ImageTransform(
+        resize=256,
+        normalize=Normalize(mean, std),
+        color_jitter_strength=config.color_jitter if train else 0.0,
+        rng=np.random.RandomState(seed),
+        keep_uint8=keep_uint8,
+    )
+
+
+def build_device_preprocess(dataset: str, scene: str,
+                            asset_root: str = "data",
+                            dtype: torch.dtype = torch.float32):
+    """Device-side normalize for the uint8 host path (or None for synth).
+
+    The returned function is closed over the scene's pixel stats: the host
+    ships resized uint8 and ``(x/255 - mean)/std`` + the ``dtype`` cast run
+    on the device, on whatever device the batch lives.
+    """
+    if dataset == "synth":
+        return None
+    from ..ops.image import normalize
+
+    stats = np.loadtxt(Path(asset_root) / dataset / scene / "stats.txt")
+    mean, std = std_from_stats(stats)
+    mean = tuple(float(m) for m in mean)
+    std = tuple(float(s) for s in std)
+
+    def preprocess(images: torch.Tensor) -> torch.Tensor:
+        return normalize(images, mean, std, dtype=dtype)
+
+    return preprocess
 
 
 def build_raw_device_preprocess(
@@ -68,26 +125,68 @@ def build_frame_dataset(
     scene: str,
     data_path: str,
     train: bool,
+    config: ExperimentConfig | None = None,
+    transform=None,
     real: bool = False,
     asset_root: str = "data",
     raw_bayer: bool = False,
+    cache_gb: float = 0.0,
 ):
-    """Construct one frame dataset by name (RobotCar raw mosaics with
-    ground-truth poses only, so far)."""
-    if dataset != "RobotCar":
-        raise NotImplementedError(
-            f"dataset {dataset!r} is not ported yet (ROADMAP.md, Queue 1)")
-    if not raw_bayer:
-        raise NotImplementedError(
-            "RobotCar's processed-RGB frames are not ported yet (ROADMAP.md, "
-            "Queue 1); use the raw Bayer mosaics")
-    if real:
-        raise NotImplementedError(
-            "RobotCar VO/GPS poses (real=True) are not ported yet "
-            "(ROADMAP.md, Queue 1: PGO)")
-    from ..data.robotcar import RobotCar
+    """Construct one frame dataset by name.
 
-    return RobotCar(
-        scene=scene, data_path=data_path, train=train,
-        asset_dir=str(Path(asset_root) / "RobotCar"),
+    ``cache_gb`` wraps the on-disk datasets in a decoded-frame RAM cache
+    (:class:`~geomapnet_tpu_torch.data.cache.CachedScene`): image decode is
+    paid once per process. Skipped with a message when the transform
+    jitters (caching would freeze one draw).
+    """
+    config = config or ExperimentConfig()
+    built = _build_frame_dataset(
+        dataset, scene, data_path, train, config, transform, real,
+        asset_root, raw_bayer,
     )
+    if cache_gb > 0 and dataset != "synth":
+        from ..data.cache import CachedScene
+
+        try:
+            built = CachedScene(built, max_bytes=int(cache_gb * 1024 ** 3))
+        except ValueError as e:
+            print(f"frame cache disabled for this split: {e}")
+    return built
+
+
+def _build_frame_dataset(
+    dataset, scene, data_path, train, config, transform, real, asset_root,
+    raw_bayer,
+):
+    if dataset == "synth":
+        from ..data.synthetic import SyntheticScene
+
+        return SyntheticScene(
+            n_frames=64, height=64, width=96, train=train, real=real,
+            seed=config.seed,
+        )
+    if dataset == "7Scenes":
+        from ..data.sevenscenes import SevenScenes
+
+        return SevenScenes(
+            scene=scene, data_path=data_path, train=train,
+            transform=transform, seed=config.seed, real=real,
+            vo_lib=config.vo_lib,
+            asset_dir=str(Path(asset_root) / "7Scenes"),
+        )
+    if dataset == "RobotCar":
+        if not raw_bayer:
+            raise NotImplementedError(
+                "RobotCar's processed-RGB frames are not ported yet "
+                "(ROADMAP.md, Queue 1); use the raw Bayer mosaics")
+        if real:
+            raise NotImplementedError(
+                "RobotCar VO/GPS poses (real=True) are not ported yet "
+                "(ROADMAP.md, Queue 1, item 13)")
+        from ..data.robotcar import RobotCar
+
+        return RobotCar(
+            scene=scene, data_path=data_path, train=train,
+            asset_dir=str(Path(asset_root) / "RobotCar"),
+        )
+    raise ValueError(f"unknown dataset {dataset}")

@@ -1,19 +1,27 @@
 """Evaluation CLI: batched inference and median/mean pose errors.
 
-The PyTorch counterpart of :mod:`geomapnet_tpu.cli.eval` for its loader path
-(upstream scripts/eval.py): per-frame L2 translation error and quaternion
+The PyTorch counterpart of :mod:`geomapnet_tpu.cli.eval` (upstream
+scripts/eval.py): per-frame L2 translation error and quaternion
 angular error, median and mean, over the middle frame of each tuple, with
 translations un-normalized by the scene's ``pose_stats.txt``.
 
-Ported so far: RobotCar raw-Bayer mosaics through the device pipeline, with
-PoseNet or MapNet weights from a Flax ``.npz``::
+Ported so far, with PoseNet or MapNet weights from a Flax ``.npz``, in
+float32 or (``--bf16``) bfloat16:
 
-    python -m geomapnet_tpu_torch.cli.eval --dataset RobotCar --scene loop \\
-        --raw_bayer --model mapnet --config_file configs/mapnet.ini \\
-        --weights weights.npz --val --data_path <root> --asset_root <assets>
+- 7Scenes and the synthetic scene: host decode and resize to uint8, upload,
+  normalize on the device; or, with ``--device_cache``, the whole scene
+  uploaded once and the epoch run from the device, each unique frame
+  computed once (:mod:`geomapnet_tpu_torch.cli.eval_epoch`)::
 
-The device frame cache, pose-graph optimization, int8 / BN-folded / bf16
-serving, eval-time dropout and the trajectory plot are not ported yet.
+    python -m geomapnet_tpu_torch.cli.eval --dataset 7Scenes --scene heads \\
+        --model mapnet --config_file configs/mapnet.ini --weights w.npz \\
+        --val --device_cache --data_path <root> --asset_root <assets>
+
+- RobotCar raw-Bayer mosaics through the device pipeline (``--raw_bayer``).
+
+Pose-graph optimization, int8 / BN-folded serving, eval-time dropout, the
+native decoder and the trajectory plot are not ported yet; their flags are
+refused with the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -28,17 +36,27 @@ import numpy as np
 import torch
 
 from ..data.composite import MF
+from ..data.device_cache import upload_frames
 from ..data.loader import Loader
 from ..geometry.metrics import quaternion_angular_error, translation_error
 from ..geometry.rotations import qexp_np
 from ..models.flax_import import load_npz, variables_to_state_dict
 from .builders import (
     TRUNKS,
+    build_device_preprocess,
     build_frame_dataset,
     build_model,
     build_raw_device_preprocess,
+    build_transform,
 )
 from .config import parse_ini
+from .eval_epoch import (
+    make_step,
+    plan_epoch,
+    run_epoch,
+    tuple_index_matrix,
+    tuple_outputs,
+)
 
 __all__ = ["evaluate", "main"]
 
@@ -65,9 +83,23 @@ def evaluate(model: torch.nn.Module, dataset, device: torch.device,
     dataset on ``device``.
 
     ``preprocess`` maps the uploaded raw batch to model input on the device
-    (e.g. the raw-Bayer pipeline). Returns {"pred_poses", "targ_poses",
-    "t_err", "q_err", "median_t", "median_q", "mean_t", "mean_q",
-    "images_per_sec"}.
+    (the uint8 normalize, or the raw-Bayer pipeline). Returns
+    {"pred_poses", "targ_poses", "t_err", "q_err", "median_t", "median_q",
+    "mean_t", "mean_q", "images_per_sec"}; ``images_per_sec`` counts the
+    evaluated tuple-images.
+
+    ``device_cache``: False runs the loader path (host decode, one upload
+    per batch). True uploads every frame once
+    (:func:`geomapnet_tpu_torch.data.device_cache.upload_frames`) and runs
+    the epoch from the device (:mod:`geomapnet_tpu_torch.cli.eval_epoch`); a
+    tensor returned earlier as ``result["device_frames"]`` is reused without
+    an upload. The result then also holds "device_frames", "upload_secs"
+    (not in the rate's clock), "frames_computed" (forwards run, pads
+    included) and "dedup_slice".
+
+    ``dedup_frames`` (device cache only): None computes each unique frame
+    once when that saves forwards (MapNet), True always does (MapNet only),
+    False keeps the tuple epoch.
 
     With a variable-skip MF dataset the loader's get_indices draws and the
     middle-frame scatter's re-draws would differ under the shared RNG, so
@@ -97,57 +129,81 @@ def _evaluate(
     progress: bool = True,
     preprocess=None,
     num_workers: int = 1,
+    device_cache=False,
+    dedup_frames: bool | None = None,
 ) -> dict:
     is_tuple = isinstance(dataset, MF)
     L = len(dataset.dset) if is_tuple else len(dataset)
     steps = dataset.steps if is_tuple else 1
-    # Tuple batches upload T-FOLDED, (B*T, H, W[, C]): a free host-side view;
-    # the shared-weight PoseNet runs on the folded axis and the poses fold
-    # back to (B, T, 6) (MapNet is exactly this fold).
-    posenet = getattr(model, "posenet", None)
-    fold_T = steps if (is_tuple and posenet is not None) else None
-
+    use_device_cache = device_cache is not False and device_cache is not None
+    if dedup_frames and not use_device_cache:
+        raise ValueError(
+            "dedup_frames=True requires device_cache (the dedup epoch runs "
+            "over unique cached frame indices)")
     pose_m, pose_s = (
         pose_stats if pose_stats is not None else (np.zeros(3), np.ones(3))
     )
-    pred_poses = np.zeros((L, 7))
-    targ_poses = np.zeros((L, 7))
-    n_images = 0
-    # outputs stay on the device: one readback after the loop instead of a
-    # host sync per batch
-    dev_outputs = []
-    host_targets = []
-    valids = []
-
-    loader = Loader(dataset if is_tuple else _Single(dataset), batch_size,
-                    shuffle=False, drop_last=False, num_workers=num_workers)
+    # batches run T-FOLDED, (B*T, H, W, C), through the per-frame PoseNet
+    # (MapNet is exactly this fold) and fold back to (B, T, 6)
+    step = make_step(model, preprocess, steps)
     model.eval()
-    t_start = time.time()
-    with torch.inference_mode():
-        for batch_idx, (imgs, poses, pad) in enumerate(loader):
-            valid = imgs.shape[0] - pad
-            if progress and batch_idx % 10 == 0:
-                print(f"Batch {batch_idx} / {len(loader)}")
-            if fold_T is not None:
-                imgs = imgs.reshape(-1, *imgs.shape[2:])
-            x = torch.from_numpy(imgs).to(device)
-            if not is_tuple:
-                x = x[:, 0]  # PoseNet consumes (B, H, W, C)
-            if preprocess is not None:
-                x = preprocess(x)
-            if fold_T is not None:
-                out = posenet(x).reshape(-1, fold_T, 6)
-            else:
-                out = model(x)
-            dev_outputs.append(out if out.ndim == 3 else out[:, None, :])
-            targ = np.asarray(poses, np.float64)
-            host_targets.append(targ if targ.ndim == 3 else targ[:, None, :])
-            valids.append(valid)
-            n_images += valid * steps
+    result = {}
 
-        output = torch.cat(dev_outputs).to("cpu", torch.float64).numpy()
-    elapsed = time.time() - t_start
-    targ = np.concatenate(host_targets)
+    if use_device_cache:
+        frames_src = dataset.dset if is_tuple else dataset
+        t_up = time.time()
+        if isinstance(device_cache, torch.Tensor):
+            frame_buf = device_cache
+        else:
+            frame_buf = upload_frames(frames_src, device,
+                                      num_workers=num_workers)
+        if frame_buf.device.type == "cuda":
+            torch.cuda.synchronize(frame_buf.device)
+        upload_secs = time.time() - t_up
+        idx_mat = tuple_index_matrix(dataset, is_tuple)
+        if is_tuple:
+            targ = np.stack([dataset._poses_for(ti) for ti in idx_mat])
+        else:
+            tt = getattr(frames_src, "target_transform", None)
+            targ = np.stack([
+                np.asarray(tt(p) if tt is not None else p, np.float32)[None]
+                for p in frames_src.poses])
+        t_start = time.time()
+        plan = plan_epoch(idx_mat, batch_size, per_frame=is_tuple,
+                          dedup_frames=dedup_frames)
+        if progress:
+            print(f"eval: {plan.mode} epoch, {len(plan.windows)} windows of "
+                  f"{plan.window_frames} frames from the device cache")
+        outs = run_epoch(plan, frame_buf, step)
+        output = tuple_outputs(plan, outs.to("cpu", torch.float64).numpy())
+        elapsed = time.time() - t_start
+        result.update(device_frames=frame_buf, upload_secs=upload_secs,
+                      frames_computed=plan.frames_computed,
+                      dedup_slice=plan.mode == "slice")
+    else:
+        # outputs stay on the device: one readback after the loop instead
+        # of a host sync per batch
+        dev_outputs = []
+        host_targets = []
+        loader = Loader(dataset if is_tuple else _Single(dataset),
+                        batch_size, shuffle=False, drop_last=False,
+                        num_workers=num_workers)
+        t_start = time.time()
+        with torch.inference_mode():
+            for batch_idx, (imgs, poses, _) in enumerate(loader):
+                if progress and batch_idx % 10 == 0:
+                    print(f"Batch {batch_idx} / {len(loader)}")
+                x = torch.from_numpy(imgs.reshape(-1, *imgs.shape[2:]))
+                dev_outputs.append(step(x.to(device)))
+                host_targets.append(poses)
+            output = torch.cat(dev_outputs).to("cpu", torch.float64).numpy()
+        elapsed = time.time() - t_start
+        targ = np.concatenate(host_targets)
+        idx_mat = tuple_index_matrix(dataset, is_tuple)
+    # drop the last batch's pad rows
+    S = len(idx_mat)
+    output = output[:S]
+    targ = np.asarray(targ[:S], np.float64)
 
     # log-q -> unit quaternion
     out7 = np.concatenate([output[..., :3], qexp_np(output[..., 3:])], axis=-1)
@@ -160,24 +216,15 @@ def _evaluate(
     out7[..., :3] = out7[..., :3] * pose_s + pose_m
     targ7[..., :3] = targ7[..., :3] * pose_s + pose_m
 
-    # middle-frame selection into the global arrays (pad rows skipped)
-    base = 0
-    row = 0
-    for batch_idx, valid in enumerate(valids):
-        for b in range(valid):
-            sample_idx = base + b
-            if is_tuple:
-                idx = dataset.get_indices(sample_idx)
-                idx = idx[len(idx) // 2]
-            else:
-                idx = sample_idx
-            pred_poses[idx] = out7[row + b, steps // 2]
-            targ_poses[idx] = targ7[row + b, steps // 2]
-        base += valid
-        row += len(host_targets[batch_idx])
+    # middle-frame selection into the global arrays
+    pred_poses = np.zeros((L, 7))
+    targ_poses = np.zeros((L, 7))
+    mid = idx_mat[:, steps // 2]
+    pred_poses[mid] = out7[:, steps // 2]
+    targ_poses[mid] = targ7[:, steps // 2]
     t_err = translation_error(pred_poses[:, :3], targ_poses[:, :3])
     q_err = quaternion_angular_error(pred_poses[:, 3:], targ_poses[:, 3:])
-    return {
+    result.update({
         "pred_poses": pred_poses,
         "targ_poses": targ_poses,
         "t_err": t_err,
@@ -186,8 +233,9 @@ def _evaluate(
         "mean_t": float(np.mean(t_err)),
         "median_q": float(np.median(q_err)),
         "mean_q": float(np.mean(q_err)),
-        "images_per_sec": n_images / max(elapsed, 1e-9),
-    }
+        "images_per_sec": S * steps / max(elapsed, 1e-9),
+    })
+    return result
 
 
 def _pick_device(name: str | None) -> torch.device:
@@ -200,13 +248,27 @@ def _pick_device(name: str | None) -> torch.device:
     return torch.device(name)
 
 
+# flags of the JAX CLI that the port refuses, and the ROADMAP.md item that
+# ports each
+_UNPORTED_FLAGS = {
+    "pose_graph": "Queue 1, item 11 (PGO)",
+    "quantize": "Queue 1, slice 4 (items 7-9)",
+    "fold_bn": "Queue 1, slice 4 (items 7-9)",
+    "calibrate": "Queue 1, slice 4 (items 7-9)",
+    "quantize_heads": "Queue 1, slice 4 (items 7-9)",
+    "fuse_requant": "Queue 1, slice 4 (items 7-9)",
+    "eval_dropout": "Queue 1, item 12 (dropout masks, Queue 3)",
+    "native_loader": "Queue 1, item 15 (native decoder)",
+}
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(
         description="Evaluation script for PoseNet and MapNet (PyTorch)"
     )
     parser.add_argument("--dataset", type=str, required=True,
-                        choices=("RobotCar",))
-    parser.add_argument("--scene", type=str, required=True)
+                        choices=("7Scenes", "RobotCar", "synth"))
+    parser.add_argument("--scene", type=str, default="synth")
     parser.add_argument("--weights", type=str, required=True,
                         help="Flax variables as an .npz (save_npz format)")
     parser.add_argument("--model", required=True,
@@ -224,14 +286,56 @@ def main(argv=None) -> dict:
     parser.add_argument("--data_path", type=str, default="data/deepslam_data")
     parser.add_argument("--asset_root", type=str, default="data")
     parser.add_argument(
+        "--bf16", action="store_true",
+        help="bfloat16 compute at the JAX package's placement (convs and "
+        "dense layers in bf16, BatchNorm and residuals in float32)")
+    parser.add_argument(
+        "--host_normalize", action="store_true",
+        help="normalize images on the host (float32 transfer) instead of the "
+        "default device-side normalize (uint8 transfer, 4x smaller)",
+    )
+    parser.add_argument(
         "--raw_bayer", action="store_true",
         help="RobotCar raw Bayer mosaics + on-device "
         "demosaic/resize/normalize (the only RobotCar input ported so far)",
     )
+    parser.add_argument(
+        "--cache_frames", type=float, default=0.0, metavar="GB",
+        help="decoded-frame RAM cache: repeated passes over a split decode "
+        "each frame once",
+    )
+    parser.add_argument(
+        "--device_cache", action="store_true",
+        help="upload the whole scene's frames to the device once and run "
+        "the epoch from there (no per-batch decode or upload)",
+    )
+    parser.add_argument(
+        "--no_frame_dedup", action="store_true",
+        help="with --device_cache: keep the tuple epoch instead of the "
+        "default frame-dedup epoch (each unique frame's forward computed "
+        "once, per-tuple poses gathered from the pose table)",
+    )
+    # the JAX CLI's flags that are not ported yet: refused below
+    for flag in ("pose_graph", "fold_bn", "quantize_heads", "fuse_requant",
+                 "eval_dropout", "native_loader"):
+        parser.add_argument(f"--{flag}", action="store_true",
+                            help=f"not ported yet (ROADMAP.md, "
+                            f"{_UNPORTED_FLAGS[flag]})")
+    parser.add_argument("--quantize", choices=["int8"], default=None,
+                        help="not ported yet (ROADMAP.md, "
+                        f"{_UNPORTED_FLAGS['quantize']})")
+    parser.add_argument("--calibrate", type=int, default=0, metavar="N",
+                        help="not ported yet (ROADMAP.md, "
+                        f"{_UNPORTED_FLAGS['calibrate']})")
     args = parser.parse_args(argv)
-    if not args.raw_bayer:
+    for flag, where in _UNPORTED_FLAGS.items():
+        if getattr(args, flag):
+            parser.error(f"--{flag} is not ported yet (ROADMAP.md, {where})")
+    if args.dataset == "RobotCar" and not args.raw_bayer:
         parser.error("only --raw_bayer RobotCar input is ported so far "
                      "(ROADMAP.md, Queue 1)")
+    if args.raw_bayer and args.dataset != "RobotCar":
+        parser.error("--raw_bayer requires --dataset RobotCar")
     if Path(args.weights).suffix != ".npz":
         parser.error("--weights must be an .npz of Flax variables")
     device = _pick_device(args.device)
@@ -240,10 +344,11 @@ def main(argv=None) -> dict:
     # would otherwise run in TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
 
     config = parse_ini(args.config_file)
     use_tuples = args.model == "mapnet"
-    model, _ = build_model(args.model, config, trunk=args.trunk)
+    model, _ = build_model(args.model, config, trunk=args.trunk, dtype=dtype)
     posenet = model.posenet if use_tuples else model
     posenet.load_state_dict(variables_to_state_dict(load_npz(args.weights)))
     model.to(device=device, memory_format=torch.channels_last)
@@ -253,24 +358,46 @@ def main(argv=None) -> dict:
     print(f"Running {args.model} on {'TRAIN' if train else 'VAL'} data "
           f"on {device}")
 
-    preprocess = build_raw_device_preprocess(args.scene, args.asset_root)
+    data_path = (
+        args.data_path if args.dataset == "synth"
+        else f"{args.data_path}/{args.dataset}"
+    )
+    if args.raw_bayer:
+        preprocess = build_raw_device_preprocess(args.scene, args.asset_root,
+                                                 dtype=dtype)
+    elif args.host_normalize:
+        preprocess = None
+    else:
+        preprocess = build_device_preprocess(args.dataset, args.scene,
+                                             args.asset_root, dtype=dtype)
+    tf = None if args.raw_bayer else build_transform(
+        args.dataset, args.scene, config, args.asset_root,
+        train=False, seed=config.seed, keep_uint8=preprocess is not None,
+    )
     frames = build_frame_dataset(
-        args.dataset, args.scene, f"{args.data_path}/{args.dataset}", train,
+        args.dataset, args.scene, data_path, train, config, transform=tf,
         real=config.real if use_tuples else False,
-        asset_root=args.asset_root, raw_bayer=True,
+        asset_root=args.asset_root, raw_bayer=args.raw_bayer,
+        cache_gb=args.cache_frames,
     )
     dataset = (
         MF(frames, steps=config.steps, skip=config.skip,
            variable_skip=config.variable_skip, seed=config.seed)
         if use_tuples else frames
     )
-    pose_stats = tuple(np.loadtxt(
-        Path(args.asset_root) / args.dataset / args.scene / "pose_stats.txt"))
+    if args.dataset == "synth":
+        pose_stats = (np.zeros(3), np.ones(3))
+    else:
+        pose_stats = tuple(np.loadtxt(
+            Path(args.asset_root) / args.dataset / args.scene
+            / "pose_stats.txt"))
 
     results = evaluate(
         model, dataset, device, batch_size=args.batch_size,
         pose_stats=pose_stats, preprocess=preprocess,
         num_workers=config.num_workers,
+        device_cache=args.device_cache,
+        dedup_frames=False if args.no_frame_dedup else None,
     )
 
     print(
@@ -282,6 +409,10 @@ def main(argv=None) -> dict:
     )
     print(f"Eval throughput: {results['images_per_sec']:.1f} images/sec "
           f"on {device}")
+    if args.device_cache:
+        print(f"Device cache: upload {results['upload_secs']:.2f} s, "
+              f"{results['frames_computed']} frames computed, "
+              f"slice epoch {results['dedup_slice']}")
 
     if args.output_dir:
         out = Path(args.output_dir).expanduser()

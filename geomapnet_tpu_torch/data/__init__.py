@@ -1,1 +1,2 @@
-"""Host data layer (numpy): RobotCar frames, MF tuples, batch loader."""
+"""Host data layer (numpy): 7Scenes, RobotCar and synthetic frames, MF tuples,
+batch loader, decoded-frame cache; and the device frame cache."""

@@ -1,11 +1,13 @@
 """Image preprocessing on the device: raw uint8 batch -> model input.
 
 The PyTorch counterpart of :mod:`geomapnet_tpu.ops.image`, for the RobotCar
-raw-Bayer path. :func:`make_device_pipeline` composes the hand-written CUDA
+raw-Bayer path and the RGB (7Scenes) path. For mosaics,
+:func:`make_device_pipeline` composes the hand-written CUDA
 demosaic+normalize kernel (:mod:`geomapnet_tpu_torch.ops.cuda_image`) with a
 separable resize done as two dense matmuls, the order the JAX package runs
-on its accelerator. Batches are NHWC at the public boundary, as in the JAX
-package.
+on its accelerator. RGB batches take JAX's non-Bayer branch: float32, an
+optional resize, then :func:`normalize`. Batches are NHWC at the public
+boundary, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ import torch
 from . import cuda_image
 
 __all__ = [
+    "box_halve",
     "demosaic_half",
     "normalize",
+    "resize_bilinear",
     "resize_bilinear_matmul",
     "resize_shorter_side_shape",
     "make_device_pipeline",
@@ -92,6 +96,49 @@ def resize_bilinear_matmul(img: torch.Tensor, out_h: int, out_w: int
     return torch.matmul(out, wx.t())              # (N, C, out_h, out_w)
 
 
+def box_halve(img: torch.Tensor) -> torch.Tensor:
+    """2x2 box downsample: (N, H, W, C) -> (N, H//2, W//2, C)."""
+    n, h, w, c = img.shape
+    img = img[:, : h - h % 2, : w - w % 2]
+    return img.reshape(n, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+
+
+@functools.lru_cache(maxsize=32)
+def _linear_resize_weights(n_in: int, n_out: int, device: torch.device
+                           ) -> torch.Tensor:
+    """Dense (n_out, n_in) weights of ``jax.image.resize(method='linear',
+    antialias=False)``, computed in float32 in its order: a triangle kernel
+    at half-pixel sample positions, normalized per output, zero where the
+    sample falls outside the input."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(
+        sample[None, :] - np.arange(n_in, dtype=f32)[:, None]))
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    w = np.where(inside[None, :], w, f32(0.0)).astype(f32)
+    return torch.from_numpy(np.ascontiguousarray(w.T)).to(device)
+
+
+def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int
+                    ) -> torch.Tensor:
+    """Batched resize (N, H, W, C) -> (N, out_h, out_w, C) float32.
+
+    As :func:`geomapnet_tpu.ops.image.resize_bilinear`: downscales of 2x or
+    more are prefiltered with 2x2 box octaves, then a plain bilinear resize
+    with ``jax.image.resize``'s weights covers the rest.
+    """
+    img = img.to(torch.float32)
+    while img.shape[1] >= 2 * out_h and img.shape[2] >= 2 * out_w:
+        img = box_halve(img)
+    wy = _linear_resize_weights(img.shape[1], out_h, img.device)
+    wx = _linear_resize_weights(img.shape[2], out_w, img.device)
+    return torch.einsum("oh,nhwc,pw->nopc", wy, img, wx)
+
+
 def make_device_pipeline(
     mean,
     std,
@@ -103,31 +150,38 @@ def make_device_pipeline(
     """Compose the device pipeline: raw uint8 batch -> model input.
 
     :param bayer: input is an (N, H, W) or (N, T, H, W) GBRG mosaic batch
-        (RobotCar raw); the only input this port takes so far
-    :param resize_to: target (H, W), at most half the mosaic's size
+        (RobotCar raw); else an (N, H, W, 3) or (N, T, H, W, 3) RGB batch
+    :param resize_to: target (H, W); for mosaics at most half their size
     :param undistort_maps: not ported yet
     :return: ``pipeline(raw) -> (N[, T], out_h, out_w, 3)`` in ``dtype``
 
-    Runs what the JAX package runs on its accelerator: the fused demosaic +
-    normalize kernel writes planar float32 at half resolution, the matmul
-    resize follows (normalize commutes with the linear resize), then the
-    NHWC view and the cast. A CUDA batch goes through the CUDA kernel, a CPU
-    batch through its plain version.
+    Mosaics run what the JAX package runs on its accelerator: the fused
+    demosaic + normalize kernel writes planar float32 at half resolution,
+    the matmul resize follows (normalize commutes with the linear resize),
+    then the NHWC view and the cast. A CUDA batch goes through the CUDA
+    kernel, a CPU batch through its plain version. RGB batches are cast to
+    float32, resized when ``resize_to`` is given, and normalized.
     """
     if undistort_maps is not None:
         raise NotImplementedError(
             "undistortion on the device is not ported yet (ROADMAP.md, "
             "Queue 1: undistort / full demosaic)")
+    mean = tuple(float(m) for m in mean)
+    std = tuple(float(s) for s in std)
     if not bayer:
-        raise NotImplementedError(
-            "the RGB (7Scenes) device pipeline is not ported yet "
-            "(ROADMAP.md, Queue 1: slice 2)")
+        def rgb_pipeline(raw: torch.Tensor) -> torch.Tensor:
+            lead = raw.shape[:-3]
+            img = raw.reshape((-1,) + tuple(raw.shape[-3:])).to(torch.float32)
+            if resize_to is not None:
+                img = resize_bilinear(img, *resize_to)
+            out = normalize(img, mean, std, dtype=dtype)
+            return out.reshape(tuple(lead) + tuple(out.shape[1:]))
+
+        return rgb_pipeline
     if resize_to is None:
         raise NotImplementedError(
             "a full-resolution demosaic is not ported yet (ROADMAP.md, "
             "Queue 1: undistort / full demosaic); pass resize_to")
-    mean = tuple(float(m) for m in mean)
-    std = tuple(float(s) for s in std)
     out_h, out_w = resize_to
 
     def pipeline(raw: torch.Tensor) -> torch.Tensor:

@@ -212,9 +212,11 @@ def test_cli_refuses_silent_cpu(tmp_path, monkeypatch):
         ])
 
 
-def test_unported_datasets_raise():
+def test_unported_datasets_raise(tmp_path):
+    from geomapnet_tpu_torch.data.sevenscenes import SevenScenes
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        builders.build_frame_dataset("7Scenes", "heads", "x", True)
+        SevenScenes("heads", str(tmp_path), True, use_native=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         builders.build_frame_dataset("RobotCar", "loop", "x", True,
                                      raw_bayer=False)

@@ -24,6 +24,9 @@ from geomapnet_tpu.data.robotcar import RobotCar as JaxRobotCar
 from geomapnet_tpu.data.robotcar_sdk import (
     interpolate_ins_poses as jax_interpolate_ins,
 )
+from geomapnet_tpu.data import transforms as jax_transforms
+from geomapnet_tpu.data.cache import CachedScene as JaxCachedScene
+from geomapnet_tpu.data.synthetic import SyntheticScene as JaxSyntheticScene
 from geomapnet_tpu.data.transforms import Normalize as JaxNormalize
 from geomapnet_tpu.data.transforms import std_from_stats as jax_std_from_stats
 from geomapnet_tpu.data.tuples import TupleSampler as JaxTupleSampler
@@ -31,11 +34,13 @@ from geomapnet_tpu.geometry import metrics as jax_metrics
 from geomapnet_tpu.geometry import process as jax_process
 from geomapnet_tpu.geometry import rotations as jax_rot
 from geomapnet_tpu_torch.cli.config import parse_ini
-from geomapnet_tpu_torch.data import vo_np
+from geomapnet_tpu_torch.data import transforms, vo_np
+from geomapnet_tpu_torch.data.cache import CachedScene
 from geomapnet_tpu_torch.data.composite import MF
 from geomapnet_tpu_torch.data.loader import Loader
 from geomapnet_tpu_torch.data.robotcar import RobotCar
 from geomapnet_tpu_torch.data.robotcar_sdk import interpolate_ins_poses
+from geomapnet_tpu_torch.data.synthetic import SyntheticScene
 from geomapnet_tpu_torch.data.transforms import Normalize, std_from_stats
 from geomapnet_tpu_torch.data.tuples import TupleSampler
 from geomapnet_tpu_torch.geometry import metrics, process
@@ -198,6 +203,97 @@ def test_transforms_copies():
     img = np.random.RandomState(5).rand(4, 5, 3).astype(np.float32)
     np.testing.assert_array_equal(Normalize(*stats)(img),
                                   JaxNormalize(*stats)(img))
+
+
+def _photo(h=480, w=640, seed=6):
+    """A 7Scenes-sized PIL colour image: smooth shapes plus noise."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = 127 + 100 * np.sin(xx / 37.0)[..., None] * np.cos(
+        yy / 23.0)[..., None] * rng.uniform(0.3, 1.0, 3)
+    return Image.fromarray(np.clip(base + rng.randn(h, w, 3) * 9, 0,
+                                   255).astype(np.uint8))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(resize=256, keep_uint8=True),
+    dict(resize=256, normalize=(0.45, 0.28)),
+    dict(resize=None),
+    dict(resize=128, keep_uint8=True, color_jitter_strength=0.7),
+    dict(resize=128, color_jitter_strength=0.3, normalize=(0.4, 0.3)),
+], ids=["uint8", "host_normalized", "raw", "jitter_uint8", "jitter_norm"])
+def test_image_transform_copy(kw):
+    """A 480x640 frame through both ImageTransforms: PIL's bilinear
+    shortest-side resize (to 256x341) and the rint to uint8 bit for bit,
+    the jitter draws from equal seeds."""
+    img = _photo()
+    outs = []
+    for mod in (transforms, jax_transforms):
+        t_kw = dict(kw)
+        if "normalize" in t_kw:
+            t_kw["normalize"] = mod.Normalize(*t_kw["normalize"])
+        outs.append(mod.ImageTransform(rng=np.random.RandomState(9),
+                                       **t_kw)(img))
+    ours, theirs = outs
+    assert ours.dtype == theirs.dtype and ours.shape == theirs.shape
+    np.testing.assert_array_equal(ours, theirs)
+    if kw.get("resize") == 256:
+        assert ours.shape == (256, 341, 3)
+
+
+def test_transforms_functions_copies():
+    img = _photo(60, 90)
+    for size in (30, 60, 200):
+        np.testing.assert_array_equal(
+            np.asarray(transforms.resize_shorter_side(img, size)),
+            np.asarray(jax_transforms.resize_shorter_side(img, size)))
+    arr = np.asarray(img, np.float64)
+    for seed in range(4):
+        np.testing.assert_array_equal(
+            transforms.color_jitter(arr, np.random.RandomState(seed), 0.5,
+                                    0.5, 0.5, 0.5),
+            jax_transforms.color_jitter(arr, np.random.RandomState(seed),
+                                        0.5, 0.5, 0.5, 0.5))
+    u8 = np.asarray(img)
+    gray = u8[..., 0].astype(np.float32)
+    for x in (u8, gray):   # already-decoded arrays
+        for keep in (True, False):
+            np.testing.assert_array_equal(
+                transforms.ImageTransform(keep_uint8=keep)(x),
+                jax_transforms.ImageTransform(keep_uint8=keep)(x))
+
+
+@pytest.mark.parametrize("kw", [dict(train=True), dict(train=False),
+                                dict(train=False, real=True),
+                                dict(train=True, height=16, width=20,
+                                     n_frames=9, seed=3)])
+def test_synthetic_scene_copy(kw):
+    ours, theirs = SyntheticScene(**kw), JaxSyntheticScene(**kw)
+    assert len(ours) == len(theirs)
+    np.testing.assert_array_equal(ours.poses, theirs.poses)
+    np.testing.assert_array_equal(ours.gt_idx, theirs.gt_idx)
+    for i in (0, len(ours) // 2, len(ours) - 1):
+        np.testing.assert_array_equal(ours[i][0], theirs[i][0])
+    assert SyntheticScene(skip_images=True).get_image(0) is None
+
+
+def test_cached_scene_copy_in_memory():
+    """Over an in-memory scene with a corrupt frame: same frames, counters
+    and budget cut-off; corrupt frames are never cached; entries frozen."""
+    a = CachedScene(_Frames(bad=(2,)), max_bytes=4 * 6)
+    b = JaxCachedScene(_Frames(bad=(2,)), max_bytes=4 * 6)
+    for idx in ([0, 1, 2], [2, 3, 3, 4], [5, 0, 6]):
+        for x, y in zip(a.get_images(idx), b.get_images(idx), strict=True):
+            assert (x is None) == (y is None)
+            if x is not None:
+                np.testing.assert_array_equal(x, y)
+    assert (a.hits, a.misses, a.cached_frames, a.cached_bytes) == (
+        b.hits, b.misses, b.cached_frames, b.cached_bytes) == (1, 9, 4, 24)
+    assert not a.get_image(0).flags.writeable
+    assert len(a) == 13
+    np.testing.assert_array_equal(a[7][1], b[7][1])
 
 
 def test_ins_interpolation_and_robotcar_poses(tmp_path):

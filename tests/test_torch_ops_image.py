@@ -157,7 +157,7 @@ def test_bayer_pipeline_bf16_output():
 
 @pytest.mark.parametrize("kwargs", [
     dict(bayer=True, resize_to=(8, 12), undistort_maps=object()),
-    dict(bayer=False, resize_to=(8, 12)),
+    dict(bayer=False, resize_to=(8, 12), undistort_maps=object()),
     dict(bayer=True, resize_to=None),
 ])
 def test_unported_pipeline_branches_raise(kwargs):
