@@ -32,9 +32,30 @@ prints no result line):
    agree with (b) and (d). Prints each run's images/s, upload time and
    frames computed, and the CUDA-event time of one device-cache window
    (preprocess + forward of 60 frames) in float32 and bf16.
+5. int8 serving: the int8 conv kernel (K1) and the int8 max-pool kernel
+   (K2), built in phase 1 from ``geomapnet_tpu_torch/csrc/``, must equal
+   their plain PyTorch versions on the card at every geometry of a 60-frame
+   ResNet-34 window (bit for bit on int8 and int32 outputs, within 1 ulp on
+   float32 and bf16), in every epilogue mode; CUDA-event times of both and
+   the bound of each. ``torch._int_mm`` (the int8 ``fc_feat`` head) must
+   equal an exact product. Then the 7Scenes scene of phase 4 through
+   ``cli.eval.main()``: (e) ``--device_cache --quantize int8 --calibrate 2
+   --quantize_heads --fuse_requant`` (the serving configuration: the
+   prequantized space-to-depth row cache), (f) the same without
+   ``--device_cache`` (loader path, 7x7 stem), (g) ``--device_cache
+   --quantize int8 --calibrate 2`` (unfused static int8), (h)
+   ``--device_cache --fold_bn --bf16``. Every pose must be finite; (e) and
+   (f) must agree within 1e-6 of the largest translation; (e) must stay
+   within 12% and (h) within the bf16 tolerance of phase 4's float32 (b);
+   K1 must launch 36 times per forward of 60 frames (the windows and the
+   calibration batches) and K2 once per window; a warm ``evaluate()`` on
+   (e)'s returned int8 rows must equal (e); the fused model on the card must
+   agree with itself on the CPU on a small input. Prints images/s,
+   upload_secs, frames_computed and the CUDA-event time of one int8 window.
 
-The line before the last is a JSON object with the kernel's launches, error
-and times; the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with every kernel's launches on
+its main path, error, times and bound; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -61,6 +82,19 @@ SEVEN_SCENES_FRAMES = 500   # test split of the 7Scenes scene
 # bf16 against float32, relative to the largest |translation|: the bound
 # tests/test_torch_sevenscenes.py fixes (BF16_TOL)
 BF16_TOL = 0.03
+# int8 fused against float32, relative to the largest |translation|: the
+# bound of tests/test_quant.py (the JAX package's int8 against its float)
+INT8_TOL = 0.12
+CALIBRATE = 2
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): device
+# memory bytes/s and int8 tensor-core operations/s
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+K1_SOURCE = "geomapnet_tpu_torch/csrc/int8_conv.cu"
+K2_SOURCE = "geomapnet_tpu_torch/csrc/int8_maxpool.cu"
+# the JAX package has no TPU kernel here: XLA lowered these lines
+K1_REPLACES = "geomapnet_tpu/models/quant.py:351"
+K2_REPLACES = "geomapnet_tpu/models/quant.py:429"
 
 
 def card_line() -> str:
@@ -71,20 +105,58 @@ def card_line() -> str:
     ).stdout.strip()
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, after warm-up."""
+def cuda_ms(fn, reps: int = 20, groups: int = 5) -> float:
+    """CUDA-event time of one ``fn``, after warm-up: the median over
+    ``groups`` of the mean of ``reps`` back-to-back runs between two events
+    (one run between two events would also count the host's launch gap)."""
     for _ in range(3):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(groups):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
+
+
+def profile_window(step, window, reps: int = 5) -> None:
+    """Device time of ``reps`` windows by kernel (``torch.profiler``, self
+    device time) and the card's busy share of their wall time; the
+    profiler slows the host, so the idle share is an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        step(window)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step(window)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0)
+        if dev > 0:
+            rows.append((dev, e.key, e.count))
+    busy = sum(r[0] for r in rows)
+    if not busy:
+        print("profile: no device time recorded (not measured)")
+        return
+    print(f"profile, {reps} windows: device busy {busy / reps / 1e3} ms of "
+          f"{wall_us / reps / 1e3} ms wall per window ({busy / wall_us} "
+          f"busy under the profiler)")
+    for dev, key, count in sorted(rows, reverse=True)[:8]:
+        print(f"  {dev / busy:.4f} of device time, {dev / reps / 1e3} ms "
+              f"per window, {count // reps} per window: {key[:90]}")
 
 
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -125,6 +197,229 @@ def check_kernel(cuda_image, mean, std) -> dict:
               f"kernel_ms {k_ms} plain_ms {p_ms}")
         out[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
     return out
+
+
+def f32_ulps(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
+    """(elements that differ, largest difference in float32 ulps)."""
+    ia = a.contiguous().view(torch.int32).to(torch.int64)
+    ib = b.contiguous().view(torch.int32).to(torch.int64)
+    ia = torch.where(ia < 0, -2 ** 31 - ia, ia)
+    ib = torch.where(ib < 0, -2 ** 31 - ib, ib)
+    d = (ia - ib).abs()
+    return int((d > 0).sum()), int(d.max()) if d.numel() else 0
+
+
+def window_convs(frames: int = MAIN_FRAMES, h: int = 256, w: int = 341,
+                 stages=(3, 4, 6, 3)) -> list:
+    """The K1 launches of one fused int8 ResNet-34 window over the S2D row
+    cache, grouped by geometry and epilogue: (name, input NHWC, O, ksize,
+    stride, pad, epilogue, launches). 36 launches in all."""
+    from geomapnet_tpu_torch.ops.cuda_quant import conv_out_hw
+
+    p1 = ((1, 1), (1, 1))
+    p0 = ((0, 0), (0, 0))
+    sh, sw = (h + h % 2) // 2, (w + w % 2) // 2
+    out = [("stem_s2d_4x4", (frames, sh, sw, 12), 64, (4, 4), (1, 1),
+            ((2, 1), (2, 1)), "relu_q", 1)]
+    ph, pw = (sh - 1) // 2 + 1, (sw - 1) // 2 + 1    # after the 3x3/2 pool
+    c = 64
+    for s, n in enumerate(stages):
+        o = 64 * 2 ** s
+        if s == 0:
+            out += [(f"layer1_conv1", (frames, ph, pw, c), o, (3, 3), (1, 1),
+                     p1, "relu_q", n),
+                    (f"layer1_conv2", (frames, ph, pw, o), o, (3, 3), (1, 1),
+                     p1, "res_i8", n)]
+            continue
+        oh, ow = conv_out_hw(ph, pw, (3, 3), (2, 2), p1)
+        last = s == len(stages) - 1
+        out += [
+            (f"layer{s + 1}_0_conv1", (frames, ph, pw, c), o, (3, 3), (2, 2),
+             p1, "relu_q", 1),
+            (f"layer{s + 1}_0_down", (frames, ph, pw, c), o, (1, 1), (2, 2),
+             p0, "deq_f32", 1),
+            (f"layer{s + 1}_0_conv2", (frames, oh, ow, o), o, (3, 3), (1, 1),
+             p1, "res_f32", 1),
+            (f"layer{s + 1}_conv1", (frames, oh, ow, o), o, (3, 3), (1, 1),
+             p1, "relu_q", n - 1),
+            (f"layer{s + 1}_conv2", (frames, oh, ow, o), o, (3, 3), (1, 1),
+             p1, "res_i8", n - 1 - last),
+        ]
+        if last:   # the trunk's last conv writes float32 for the mean
+            out.append((f"layer{s + 1}_last_conv2", (frames, oh, ow, o), o,
+                        (3, 3), (1, 1), p1, "res_i8_f32", 1))
+        ph, pw, c = oh, ow, o
+    return out
+
+
+# K1 geometries off the fused S2D window: the loader path's 7x7 stem, the
+# unfused sites' bf16 dequant, the raw accumulator and ResNet-50's 1x1
+# stride-1 conv (launches 0: not in the window's account)
+EXTRA_CONVS = [
+    ("stem_7x7_loader", (MAIN_FRAMES, 256, 341, 3), 64, (7, 7), (2, 2),
+     ((3, 3), (3, 3)), "relu_q", 0),
+    ("unfused_3x3_deq_bf16", (MAIN_FRAMES, 64, 86, 64), 64, (3, 3), (1, 1),
+     ((1, 1), (1, 1)), "deq_bf16", 0),
+    ("acc_int32_3x3", (MAIN_FRAMES, 32, 43, 128), 128, (3, 3), (1, 1),
+     ((1, 1), (1, 1)), "acc", 0),
+    ("resnet50_1x1_s1", (MAIN_FRAMES, 64, 86, 64), 256, (1, 1), (1, 1),
+     ((0, 0), (0, 0)), "deq_bf16", 0),
+]
+
+
+def conv_case(cq, case, gen) -> tuple[dict, dict]:
+    """Random int8 operands for one K1 case on ``gen``'s device: the
+    wrapper's positional and keyword arguments. Scales put the dequantized
+    values near N(0, 1), so the requant spans the int8 range."""
+    name, shape, o, ksize, stride, pad, epi, _ = case
+    dev = gen.device
+    k = ksize[0] * ksize[1] * shape[3]
+
+    def i8(*s):
+        return torch.randint(-127, 128, s, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    x = i8(*shape)
+    w = cq.pack_conv_weight(i8(ksize[0], ksize[1], shape[3], o))
+    f32 = dict(device=dev, dtype=torch.float32)
+    m = (torch.rand(o, generator=gen, **f32) + 0.5) / (5376.0 * k ** 0.5)
+    b = torch.randn(o, generator=gen, **f32) * 0.1
+    s_in = torch.tensor(1.0, **f32)
+    oh, ow = cq.conv_out_hw(shape[1], shape[2], ksize, stride, pad)
+    kw = dict(ksize=ksize, stride=stride, pad=pad)
+    if epi == "acc":
+        kw["mode"] = "acc"
+    elif epi.startswith("deq"):
+        kw.update(mode="deq", out_dtype=(torch.float32 if epi == "deq_f32"
+                                         else torch.bfloat16))
+    else:
+        kw["s_out"] = (None if epi == "res_i8_f32"
+                       else torch.tensor(3.0 / 127.0, **f32))
+        kw["mode"] = "relu_q" if epi == "relu_q" else "residual"
+        if epi == "res_f32":
+            kw["residual"] = torch.randn((shape[0], oh, ow, o),
+                                         generator=gen, **f32)
+        elif epi.startswith("res_i8"):
+            kw["residual"] = i8(shape[0], oh, ow, o)
+            kw["res_scale"] = torch.tensor(1.0 / 40.0, **f32)
+    return dict(x=x, w=w, m=m, b=b, s_in=s_in), kw
+
+
+def conv_bound_ms(args: dict, kw: dict, out: torch.Tensor, case) -> tuple:
+    """(bound ms, "bytes" or "operations") of one K1 case: its int8
+    multiply-adds at the card's int8 peak, or the bytes it must move (input,
+    weight, m, b, residual read once, output written once) at its memory
+    rate, whichever is longer."""
+    _, shape, o, ksize, _, _, _, _ = case
+    k = ksize[0] * ksize[1] * shape[3]
+    n_out = out.numel()
+    ops = 2.0 * n_out * k
+    nbytes = (args["x"].numel() + o * k + 8 * o
+              + out.numel() * out.element_size())
+    res = kw.get("residual")
+    if res is not None:
+        nbytes += res.numel() * res.element_size()
+    t_ops, t_bytes = ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_int8_kernels(cq) -> dict:
+    """Phase 5, kernel checks: K1 at every geometry and epilogue of a
+    60-frame window (and the extra ones), K2 at the stem's pool, against
+    their plain versions on the card. Returns per-window totals for the
+    JSON line."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, launches=0,
+              max_abs_err=0.0, ops_ms=0.0)
+    for case in window_convs() + EXTRA_CONVS:
+        name, shape, o, ksize, stride, pad, epi, count = case
+        args, kw = conv_case(cq, case, gen)
+        got = cq.int8_conv(*args.values(), **kw)
+        want = cq.int8_conv_reference(*args.values(), **kw)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"K1 {name}: {tuple(got.shape)} {got.dtype}"
+                                 f" vs {tuple(want.shape)} {want.dtype}")
+        err = float((got.double() - want.double()).abs().max())
+        if got.dtype in (torch.int8, torch.int32):
+            ndiff, ulps = int((got != want).sum()), 0
+            if ndiff:
+                raise AssertionError(f"K1 {name} ({epi}): {ndiff} of "
+                                     f"{got.numel()} outputs differ")
+        elif got.dtype == torch.float32:
+            ndiff, ulps = f32_ulps(got, want)
+        else:
+            ndiff, ulps = int((got != want).sum()), bf16_ulps(got, want)
+        if ulps > 1:
+            raise AssertionError(f"K1 {name} ({epi}): {ulps} ulps off")
+        ms = cuda_ms(lambda: cq.int8_conv(*args.values(), **kw))
+        plain = cuda_ms(lambda: cq.int8_conv_reference(*args.values(), **kw),
+                        reps=3)
+        bound, by = conv_bound_ms(args, kw, got, case)
+        print(f"K1 {name} {tuple(shape)} -> {tuple(got.shape)} "
+              f"{str(got.dtype)[6:]} k{ksize[0]}x{ksize[1]}/s{stride[0]} "
+              f"{epi}: {ndiff} mismatches (max {ulps} ulp, max_abs_err "
+              f"{err}), kernel_ms {ms} plain_ms {plain} bound_ms {bound} "
+              f"({by}), {count} per window")
+        k1["max_abs_err"] = max(k1["max_abs_err"], err)
+        if count:
+            k1["ms"] += count * ms
+            k1["plain_ms"] += count * plain
+            k1["bound_ms"] += count * bound
+            k1["launches"] += count
+            if by == "operations":
+                k1["ops_ms"] += count * bound
+        del args, kw, got, want
+    if k1["launches"] != 36:
+        raise AssertionError(f"a window has {k1['launches']} K1 launches")
+    k1["bound_by"] = ("operations" if k1["ops_ms"] >= k1["bound_ms"] / 2
+                      else "bytes")
+    print(f"K1 per 60-frame window (36 launches): kernel_ms {k1['ms']} "
+          f"plain_ms {k1['plain_ms']} bound_ms {k1['bound_ms']} "
+          f"({k1['bound_by']}: {k1['ops_ms']} ms of it operations-bound)")
+
+    # K2 at the stem's pool: (60, 128, 171, 64) -> (60, 64, 86, 64)
+    x = torch.randint(-127, 128, (MAIN_FRAMES, 128, 171, 64), generator=gen,
+                      device="cuda", dtype=torch.int8)
+    got = cq.int8_maxpool3x3s2(x)
+    want = cq.int8_maxpool3x3s2_reference(x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K2 differs from its plain version")
+    ms = cuda_ms(lambda: cq.int8_maxpool3x3s2(x))
+    plain = cuda_ms(lambda: cq.int8_maxpool3x3s2_reference(x), reps=5)
+    bound = (x.numel() + got.numel()) / HBM_BYTES_PER_S * 1e3
+    # the one PyTorch call that computes the same: max_pool2d, where its
+    # CUDA dispatch takes int8 (the port does not call it)
+    try:
+        xc = x.permute(0, 3, 1, 2)
+        lib_out = torch.nn.functional.max_pool2d(xc, 3, 2, 1)
+        if not torch.equal(lib_out.permute(0, 2, 3, 1), got):
+            raise AssertionError("max_pool2d int8 differs from K2")
+        library = cuda_ms(lambda: torch.nn.functional.max_pool2d(xc, 3, 2, 1))
+    except RuntimeError as e:
+        print(f"max_pool2d does not take int8 on CUDA: {e}")
+        library = None
+    print(f"K2 {tuple(x.shape)} -> {tuple(got.shape)}: bit-exact, kernel_ms "
+          f"{ms} plain_ms {plain} bound_ms {bound} (bytes) library_ms "
+          f"{library}")
+    k2 = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes",
+              library_ms=library, max_abs_err=0.0)
+
+    # the int8 fc_feat head's product (a library call, not a port kernel)
+    from geomapnet_tpu_torch.models.quant import _int_mm
+    for rows in (MAIN_FRAMES, 5):
+        a = torch.randint(-127, 128, (rows, 512), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        bt = torch.randint(-127, 128, (2048, 512), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        got = _int_mm(a, bt.t())
+        want = (a.double() @ bt.t().double()).to(torch.int32)
+        if not torch.equal(got, want):
+            raise AssertionError(f"torch._int_mm differs ({rows} rows)")
+    print("torch._int_mm (60 and 5 rows x 512 x 2048): exact")
+    return dict(K1=k1, K2=k2)
 
 
 def seeded_flax_npz(posenet: torch.nn.Module, path: Path) -> None:
@@ -209,9 +504,10 @@ def write_7scenes_scene(root: Path, n_test: int, n_train: int = 4) -> Path:
     return root
 
 
-def check_7scenes(tmp: Path, npz: Path, config_file: Path, config) -> None:
+def check_7scenes(tmp: Path, npz: Path, config_file: Path, config) -> dict:
     """Phase 4: the 7Scenes eval through the CLI, loader path and device
-    cache, float32 and bf16; raises when a check fails."""
+    cache, float32 and bf16; raises when a check fails. Returns the scene
+    and runs that phase 5 reuses."""
     from geomapnet_tpu_torch.cli import builders
     from geomapnet_tpu_torch.cli import eval as cli_eval
     from geomapnet_tpu_torch.cli.eval_epoch import make_step
@@ -292,8 +588,12 @@ def check_7scenes(tmp: Path, npz: Path, config_file: Path, config) -> None:
     # Then the CUDA-event time of one window (B*T frames): preprocess +
     # forward.
     frames = b["device_frames"]
+    # the CLI's host transform (256x341 uint8), which phase 5 decodes with
+    tf = builders.build_transform("7Scenes", "heads", config,
+                                  str(root / "assets"), train=False,
+                                  seed=config.seed, keep_uint8=True)
     dataset = MF(SevenScenes("heads", str(root / "deepslam" / "7Scenes"),
-                             train=False,
+                             train=False, transform=tf,
                              asset_dir=str(root / "assets" / "7Scenes")),
                  steps=T, skip=config.skip,
                  variable_skip=config.variable_skip, seed=config.seed)
@@ -325,6 +625,141 @@ def check_7scenes(tmp: Path, npz: Path, config_file: Path, config) -> None:
             ms = cuda_ms(lambda: step(window))
         print(f"device-cache window, {B * T} frames 256x341, preprocess + "
               f"forward, {name}: {ms} ms")
+    return dict(argv=argv, runs=runs, root=root, dataset=dataset,
+                pose_stats=pose_stats, model=model)
+
+
+def check_int8_eval(p4: dict, npz: Path, config) -> dict:
+    """Phase 5, the int8 serving eval on phase 4's scene through the CLI
+    (e)-(h), a warm rerun on (e)'s row cache, the int8 window's time and the
+    fused model on the card against the CPU. Returns K1's and K2's launches
+    in (e)."""
+    from geomapnet_tpu_torch.cli import builders
+    from geomapnet_tpu_torch.cli import eval as cli_eval
+    from geomapnet_tpu_torch.cli.eval_epoch import make_step
+    from geomapnet_tpu_torch.cli.eval_epoch import tuple_index_matrix
+    from geomapnet_tpu_torch.data.device_cache import s2d_frame_shape
+    from geomapnet_tpu_torch.models import quant
+    from geomapnet_tpu_torch.ops import cuda_quant
+
+    B, T = config.batch_size, config.steps
+    q = ["--quantize", "int8", "--calibrate", str(CALIBRATE)]
+    serving = q + ["--quantize_heads", "--fuse_requant"]
+    runs = {}
+    launches = {}
+    for name, extra in (("e_cache_int8_fused", ["--device_cache"] + serving),
+                        ("f_loader_int8_fused", serving),
+                        ("g_cache_int8_static", ["--device_cache"] + q),
+                        ("h_cache_folded_bf16", ["--device_cache", "--fold_bn",
+                                                 "--bf16"])):
+        for k in cuda_quant.launches:
+            cuda_quant.launches[k] = 0
+        t0 = time.time()
+        res = cli_eval.main(p4["argv"] + extra)
+        wall = time.time() - t0
+        launches[name] = dict(cuda_quant.launches)
+        runs[name] = res
+        print(f"7Scenes {name}: wall {wall:.2f} s, eval "
+              f"{res['images_per_sec']:.1f} images/s, upload_secs "
+              f"{res.get('upload_secs')}, frames_computed "
+              f"{res.get('frames_computed')}, dedup_slice "
+              f"{res.get('dedup_slice')}, median_t {res['median_t']:.4f}, "
+              f"launches {launches[name]}")
+        if res["pred_poses"].shape != (SEVEN_SCENES_FRAMES, 7):
+            raise AssertionError(f"{name}: pred_poses "
+                                 f"{res['pred_poses'].shape}")
+        if not np.isfinite(res["pred_poses"]).all():
+            raise AssertionError(f"{name}: non-finite poses")
+    e, f, g, h = (runs[k] for k in sorted(runs))
+    b = p4["runs"]["b_cache_f32"]
+    if e["device_frames"].dtype != torch.int8 or e["device_frames"].dim() != 2:
+        raise AssertionError("(e) did not run on the int8 row cache")
+    scale = float(np.abs(e["pred_poses"][:, :3]).max())
+    ef = float(np.abs(e["pred_poses"][:, :3] - f["pred_poses"][:, :3]).max())
+    print(f"translations, (e) cache S2D vs (f) loader 7x7: max abs diff {ef} "
+          f"= {ef / scale} of the largest, bit-identical "
+          f"{np.array_equal(e['pred_poses'], f['pred_poses'])}")
+    if ef > 1e-6 * scale:
+        raise AssertionError("(e) and (f) disagree")
+    t32 = b["pred_poses"][:, :3]
+    for name, run, tol in (("(e) int8 fused", e, INT8_TOL),
+                           ("(g) int8 static", g, INT8_TOL),
+                           ("(h) folded bf16", h, BF16_TOL)):
+        rel = float(np.abs(run["pred_poses"][:, :3] - t32).max()
+                    / np.abs(t32).max())
+        print(f"translations, {name} vs (b) float32: {rel} of the largest "
+              f"|translation| (bound {tol})")
+        if not rel <= tol:
+            raise AssertionError(f"{name} off by {rel}")
+    # K1: one launch per conv site (36 in a ResNet-34) per 60-frame
+    # forward: the epoch's windows and, before them, the calibration batches
+    # (the dynamic-scale unfused trunk); K2: one per fused window
+    stages = getattr(p4["model"], "posenet", p4["model"]) \
+        .feature_extractor.stage_sizes
+    sites = 1 + 2 * sum(stages) + len(stages) - 1
+    windows = e["frames_computed"] // (B * T)
+    want = dict(int8_conv=sites * (windows + CALIBRATE),
+                int8_maxpool3x3s2=windows)
+    if launches["e_cache_int8_fused"] != want:
+        raise AssertionError(f"(e) launches {launches['e_cache_int8_fused']}"
+                             f", expected {want}")
+
+    # a warm evaluate() on (e)'s returned row cache (no upload, no
+    # transform; calibration decodes its batches)
+    model = p4["model"]
+    dataset, pose_stats = p4["dataset"], p4["pose_stats"]
+    preprocess = builders.build_device_preprocess(
+        "7Scenes", "heads", str(p4["root"] / "assets"))
+    rows = e["device_frames"]
+    warm = cli_eval.evaluate(
+        model, dataset, rows.device, batch_size=B, pose_stats=pose_stats,
+        preprocess=preprocess, num_workers=config.num_workers,
+        device_cache=rows, progress=False, quantize=True,
+        calib_batches=CALIBRATE, quantize_heads=True, fuse_requant=True)
+    same = np.array_equal(warm["pred_poses"], e["pred_poses"])
+    print(f"7Scenes warm (e), int8 rows reused: eval "
+          f"{warm['images_per_sec']:.1f} images/s, upload_secs "
+          f"{warm['upload_secs']}, bit-identical to the CLI run {same}")
+    np.testing.assert_allclose(warm["pred_poses"], e["pred_poses"],
+                               rtol=1e-6, atol=1e-6)
+
+    # one int8 fused window on the row cache: CUDA-event time
+    posenet = getattr(model, "posenet", model)
+    idx_mat = tuple_index_matrix(dataset, True)
+    frames = p4["runs"]["b_cache_f32"]["device_frames"]
+    qtree = cli_eval._serving_tree(
+        posenet, True, True, CALIBRATE,
+        cli_eval._calibration_batches(
+            dataset, True, frames, idx_mat, CALIBRATE, B, preprocess,
+            frames.device, config.num_workers))
+    s2d = quant.convert_stem_s2d(qtree)
+    net = quant.QuantizedPoseNet(s2d, torch.bfloat16, fused=True).cuda()
+    step = make_step(net, preprocess, T)
+    shape = s2d_frame_shape(tuple(frames.shape[1:]))
+    window = rows.narrow(0, 0, B * T).view((B * T,) + shape)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: step(window))
+    print(f"int8 fused window, {B * T} frames of S2D rows {shape}: {ms} ms")
+    profile_window(step, window)
+
+    # the fused model on the card against the CPU on a small input: int8
+    # activations exact (the kernels equal their plain versions), bf16
+    # heads within a few ulp of the pose scale
+    x = torch.from_numpy(np.random.RandomState(SEED + 2).randn(
+        2, 64, 96, 3).astype(np.float32))
+    cpu_net = quant.QuantizedPoseNet(s2d, torch.bfloat16, fused=True)
+    with torch.inference_mode():
+        feat_c = quant._trunk_forward_fused(cpu_net, x, torch.float32)
+        feat_g = quant._trunk_forward_fused(net, x.cuda(), torch.float32)
+        pose_c = cpu_net(x).numpy()
+        pose_g = net(x.cuda()).cpu().numpy()
+    fd = float((feat_g.cpu() - feat_c).abs().max() / feat_c.abs().max())
+    pd = float(np.abs(pose_g - pose_c).max() / np.abs(pose_c).max())
+    print(f"small-input int8 fused, card vs CPU: features {fd}, poses {pd} "
+          f"of their largest")
+    if fd > 1e-6 or pd > 0.01:
+        raise AssertionError("int8 model on the card disagrees with the CPU")
+    return launches["e_cache_int8_fused"]
 
 
 def main() -> int:
@@ -342,7 +777,7 @@ def main() -> int:
         load_npz,
         variables_to_state_dict,
     )
-    from geomapnet_tpu_torch.ops import cuda_image
+    from geomapnet_tpu_torch.ops import _nvcc, cuda_image, cuda_quant
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -353,10 +788,14 @@ def main() -> int:
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
-    # phase 1: build
+    # phase 1: build every kernel, one nvcc per source, all at once
     t0 = time.time()
-    lib = cuda_image.build_kernel()
-    print(f"build: {lib.name} in {time.time() - t0:.2f} s")
+    sources = [cuda_image.SOURCE, cuda_quant.CONV_SOURCE,
+               cuda_quant.POOL_SOURCE]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(_nvcc.build, sources))
+    print(f"build: {', '.join(lib.name for lib in libs)} in "
+          f"{time.time() - t0:.2f} s")
 
     # phase 2: kernel vs plain version, at the main path's shape
     stats = np.loadtxt(ROOT / "data" / "RobotCar" / "loop" / "stats.txt")
@@ -445,9 +884,19 @@ def main() -> int:
         np.testing.assert_allclose(gpu_out, cpu_out, rtol=1e-4, atol=1e-4)
 
         # phase 4: the 7Scenes main path, loader and device cache
-        check_7scenes(tmp, npz, config_file, config)
+        p4 = check_7scenes(tmp, npz, config_file, config)
+
+        # phase 5: int8 serving, the kernels and then the CLI runs
+        t0 = time.time()
+        int8 = check_int8_kernels(cuda_quant)
+        print(f"int8 kernel checks: {time.time() - t0:.2f} s")
+        int8_launches = check_int8_eval(p4, npz, config)
 
     f32 = kernel["float32"]
+    # K4's bound: each mosaic byte read once, each float32 output written
+    # once (60x960x1280 uint8 -> 60x3x480x640 float32)
+    k4_bytes = MAIN_FRAMES * (960 * 1280 + 3 * 480 * 640 * 4)
+    k1, k2 = int8["K1"], int8["K2"]
     print(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "demosaic_half_normalize",
@@ -458,6 +907,33 @@ def main() -> int:
         "max_abs_err": max(k["max_abs_err"] for k in kernel.values()),
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
+        "bound_ms": k4_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": K1_SOURCE,
+        "replaces": K1_REPLACES,
+        "launches": int8_launches["int8_conv"],
+        "max_abs_err": k1["max_abs_err"],
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "int8_maxpool3x3s2",
+        "route": "cuda",
+        "source": K2_SOURCE,
+        "replaces": K2_REPLACES,
+        "launches": int8_launches["int8_maxpool3x3s2"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

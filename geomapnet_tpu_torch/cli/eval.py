@@ -19,9 +19,25 @@ float32 or (``--bf16``) bfloat16:
 
 - RobotCar raw-Bayer mosaics through the device pipeline (``--raw_bayer``).
 
-Pose-graph optimization, int8 / BN-folded serving, eval-time dropout, the
-native decoder and the trajectory plot are not ported yet; their flags are
-refused with the ROADMAP.md item that ports them.
+- The serving trunks of :mod:`geomapnet_tpu_torch.models.quant`:
+  ``--fold_bn`` (BatchNorm folded into the convs, the model's dtype) and
+  ``--quantize int8`` (int8 convs through the hand-written CUDA kernel,
+  bf16 heads), with ``--calibrate N`` static activation scales observed on
+  the first N eval batches, ``--quantize_heads`` (int8 ``fc_feat``) and
+  ``--fuse_requant`` (int8 between every conv). With ``--device_cache`` the
+  fused run caches the scene as prequantized space-to-depth int8 rows and
+  runs the stride-1 4x4 stem; the loader path keeps the 7x7 stem. The
+  serving configuration::
+
+    python -m geomapnet_tpu_torch.cli.eval --dataset 7Scenes --scene heads \\
+        --model mapnet --config_file configs/mapnet.ini --weights w.npz \\
+        --val --device_cache --quantize int8 --calibrate 2 \\
+        --quantize_heads --fuse_requant --data_path <root> \\
+        --asset_root <assets>
+
+Pose-graph optimization, eval-time dropout, the native decoder and the
+trajectory plot are not ported yet; their flags are refused with the
+ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -36,11 +52,27 @@ import numpy as np
 import torch
 
 from ..data.composite import MF
-from ..data.device_cache import upload_frames
+from ..data.device_cache import (
+    _probe_frames,
+    quantize_rows,
+    s2d_frame_shape,
+    upload_frames,
+)
 from ..data.loader import Loader
 from ..geometry.metrics import quaternion_angular_error, translation_error
 from ..geometry.rotations import qexp_np
-from ..models.flax_import import load_npz, variables_to_state_dict
+from ..models.flax_import import (
+    load_npz,
+    state_dict_to_variables,
+    variables_to_state_dict,
+)
+from ..models.quant import (
+    QuantizedPoseNet,
+    calibrate_activation_scales,
+    convert_stem_s2d,
+    fold_posenet_variables,
+    quantize_posenet_variables,
+)
 from .builders import (
     TRUNKS,
     build_device_preprocess,
@@ -101,6 +133,21 @@ def evaluate(model: torch.nn.Module, dataset, device: torch.device,
     once when that saves forwards (MapNet), True always does (MapNet only),
     False keeps the tuple epoch.
 
+    Serving trunks (:mod:`geomapnet_tpu_torch.models.quant`), under the JAX
+    package's argument names and checks: ``fold_bn`` runs the BN-folded
+    float trunk in the model's dtype; ``quantize`` the int8 trunk in bf16,
+    with dynamic scales unless ``calib_batches`` > 0 observes that many
+    eval batches (on the device-cache path gathered from the uploaded
+    frames, otherwise from a loader; the same batches either way, so the
+    same scales); ``quantize_heads`` runs ``fc_feat`` in int8 too;
+    ``fuse_requant`` keeps every activation int8 between convs. A
+    device-cache run with ``fuse_requant`` turns the cache into
+    prequantized space-to-depth int8 rows
+    (:func:`geomapnet_tpu_torch.data.device_cache.quantize_rows`, inside
+    ``upload_secs``), returned as "device_frames" and reusable as they are,
+    and runs the S2D stem. Dynamic-scale int8 couples batchmates, so it
+    keeps the tuple epoch.
+
     With a variable-skip MF dataset the loader's get_indices draws and the
     middle-frame scatter's re-draws would differ under the shared RNG, so
     per-index deterministic sampling is forced for the duration of the call
@@ -131,6 +178,11 @@ def _evaluate(
     num_workers: int = 1,
     device_cache=False,
     dedup_frames: bool | None = None,
+    quantize: bool = False,
+    fold_bn: bool = False,
+    calib_batches: int = 0,
+    quantize_heads: bool = False,
+    fuse_requant: bool = False,
 ) -> dict:
     is_tuple = isinstance(dataset, MF)
     L = len(dataset.dset) if is_tuple else len(dataset)
@@ -140,14 +192,30 @@ def _evaluate(
         raise ValueError(
             "dedup_frames=True requires device_cache (the dedup epoch runs "
             "over unique cached frame indices)")
+    if quantize and fold_bn:
+        raise ValueError("--fold_bn is implied by --quantize; pick one")
+    if fuse_requant and not (quantize and calib_batches):
+        raise ValueError(
+            "--fuse_requant needs --quantize int8 with --calibrate N "
+            "(static scales on every site)")
+    # dynamic-scale int8 quantizes each site at its batch's absmax, so a
+    # frame's pose depends on its batchmates: no dedup epoch
+    dynamic_q = quantize and not calib_batches
+    if dedup_frames and dynamic_q:
+        raise ValueError(
+            "dedup_frames needs a per-frame (MapNet-style) tuple model: "
+            "no --eval_dropout (stochastic draws are per tuple slot) "
+            "and no dynamic-scale int8 (--quantize without --calibrate "
+            "quantizes at the batch absmax, coupling rows)")
+    prequant = bool(fuse_requant) and use_device_cache
     pose_m, pose_s = (
         pose_stats if pose_stats is not None else (np.zeros(3), np.ones(3))
     )
-    # batches run T-FOLDED, (B*T, H, W, C), through the per-frame PoseNet
-    # (MapNet is exactly this fold) and fold back to (B, T, 6)
-    step = make_step(model, preprocess, steps)
     model.eval()
     result = {}
+    frame_buf = frame_shape = None
+    upload_secs = 0.0
+    idx_mat = tuple_index_matrix(dataset, is_tuple)
 
     if use_device_cache:
         frames_src = dataset.dset if is_tuple else dataset
@@ -160,7 +228,49 @@ def _evaluate(
         if frame_buf.device.type == "cuda":
             torch.cuda.synchronize(frame_buf.device)
         upload_secs = time.time() - t_up
-        idx_mat = tuple_index_matrix(dataset, is_tuple)
+    row_cache = (frame_buf is not None and frame_buf.dtype == torch.int8
+                 and frame_buf.dim() == 2)
+    if row_cache and not prequant:
+        raise ValueError("an int8 row cache (the device_frames of a "
+                         "fuse_requant run) needs fuse_requant")
+
+    net = getattr(model, "posenet", model)
+    if quantize or fold_bn:
+        qtree = _serving_tree(
+            net, quantize, quantize_heads, calib_batches,
+            _calibration_batches(
+                dataset, is_tuple, None if row_cache else frame_buf, idx_mat,
+                calib_batches, batch_size, preprocess, device, num_workers))
+        # int8 serves in bf16; BN folding keeps the model's own dtype
+        dtype = torch.bfloat16 if quantize else net.fc_feat.compute_dtype
+        if prequant:
+            # the prequantized row cache (JAX: cli/eval.py:304-365): the
+            # S2D stem over rows made once per scene, inside upload_secs
+            net = QuantizedPoseNet(convert_stem_s2d(qtree), dtype,
+                                   fused=True).to(device)
+            t_up = time.time()
+            if row_cache:
+                # a reused row cache; its frame geometry from one probe
+                frame_shape = s2d_frame_shape(_probe_frames(
+                    frames_src, len(frames_src), float("inf")).shape)
+                if np.prod(frame_shape) != frame_buf.shape[1]:
+                    raise ValueError(
+                        f"the row cache's rows of {frame_buf.shape[1]} "
+                        f"bytes are not the dataset's frames {frame_shape}")
+            else:
+                frame_shape = s2d_frame_shape(tuple(frame_buf.shape[1:]))
+                frame_buf = quantize_rows(frame_buf, net, preprocess)
+                if frame_buf.device.type == "cuda":
+                    torch.cuda.synchronize(frame_buf.device)
+            upload_secs += time.time() - t_up
+        else:
+            net = QuantizedPoseNet(qtree, dtype,
+                                   fused=bool(fuse_requant)).to(device)
+    # batches run T-FOLDED, (B*T, H, W, C), through the per-frame PoseNet
+    # (MapNet is exactly this fold) and fold back to (B, T, 6)
+    step = make_step(net, preprocess, steps)
+
+    if use_device_cache:
         if is_tuple:
             targ = np.stack([dataset._poses_for(ti) for ti in idx_mat])
         else:
@@ -169,12 +279,13 @@ def _evaluate(
                 np.asarray(tt(p) if tt is not None else p, np.float32)[None]
                 for p in frames_src.poses])
         t_start = time.time()
-        plan = plan_epoch(idx_mat, batch_size, per_frame=is_tuple,
+        plan = plan_epoch(idx_mat, batch_size,
+                          per_frame=is_tuple and not dynamic_q,
                           dedup_frames=dedup_frames)
         if progress:
             print(f"eval: {plan.mode} epoch, {len(plan.windows)} windows of "
                   f"{plan.window_frames} frames from the device cache")
-        outs = run_epoch(plan, frame_buf, step)
+        outs = run_epoch(plan, frame_buf, step, frame_shape)
         output = tuple_outputs(plan, outs.to("cpu", torch.float64).numpy())
         elapsed = time.time() - t_start
         result.update(device_frames=frame_buf, upload_secs=upload_secs,
@@ -199,7 +310,6 @@ def _evaluate(
             output = torch.cat(dev_outputs).to("cpu", torch.float64).numpy()
         elapsed = time.time() - t_start
         targ = np.concatenate(host_targets)
-        idx_mat = tuple_index_matrix(dataset, is_tuple)
     # drop the last batch's pad rows
     S = len(idx_mat)
     output = output[:S]
@@ -238,6 +348,48 @@ def _evaluate(
     return result
 
 
+def _serving_tree(posenet, quantize: bool, quantize_heads: bool,
+                  calib_batches: int, batches) -> dict:
+    """The int8 (calibrated on the iterable ``batches`` when
+    ``calib_batches``) or BN-folded tree of ``posenet``'s weights."""
+    variables = state_dict_to_variables(posenet.state_dict())
+    stage_sizes = posenet.feature_extractor.stage_sizes
+    if not quantize:
+        return fold_posenet_variables(variables, stage_sizes)
+    qtree = quantize_posenet_variables(variables, stage_sizes,
+                                       quantize_heads=quantize_heads)
+    if calib_batches:
+        qtree = calibrate_activation_scales(qtree, batches)
+    return qtree
+
+
+def _calibration_batches(dataset, is_tuple: bool, frame_buf, idx_mat,
+                         n: int, batch_size: int, preprocess, device,
+                         num_workers: int):
+    """The first ``n`` eval batches, folded to (B*T, H, W, C) and
+    preprocessed on ``device``: gathered from the uploaded frames
+    ``frame_buf`` when given (rows ``idx_mat[i*B:(i+1)*B]``; a short last
+    batch stays short where the loader repeats its last tuple, which leaves
+    every absmax as it is), else decoded by a loader as the JAX package
+    does. A generator: nothing runs until it is iterated."""
+    if frame_buf is not None:
+        for i in range(min(n, -(-len(idx_mat) // batch_size))):
+            rows = torch.from_numpy(
+                idx_mat[i * batch_size:(i + 1) * batch_size].reshape(-1))
+            x = frame_buf.index_select(0, rows.to(frame_buf.device))
+            yield preprocess(x) if preprocess is not None else x
+        return
+    loader = iter(Loader(dataset if is_tuple else _Single(dataset),
+                         batch_size, shuffle=False, drop_last=False,
+                         num_workers=num_workers))
+    try:
+        for _, (imgs, _poses, _pad) in zip(range(n), loader):
+            x = torch.from_numpy(imgs.reshape(-1, *imgs.shape[2:])).to(device)
+            yield preprocess(x) if preprocess is not None else x
+    finally:
+        loader.close()   # stops its prefetch thread
+
+
 def _pick_device(name: str | None) -> torch.device:
     """The card unless ``--device`` names another device; no silent CPU."""
     if name is None:
@@ -252,11 +404,6 @@ def _pick_device(name: str | None) -> torch.device:
 # ports each
 _UNPORTED_FLAGS = {
     "pose_graph": "Queue 1, item 11 (PGO)",
-    "quantize": "Queue 1, slice 4 (items 7-9)",
-    "fold_bn": "Queue 1, slice 4 (items 7-9)",
-    "calibrate": "Queue 1, slice 4 (items 7-9)",
-    "quantize_heads": "Queue 1, slice 4 (items 7-9)",
-    "fuse_requant": "Queue 1, slice 4 (items 7-9)",
     "eval_dropout": "Queue 1, item 12 (dropout masks, Queue 3)",
     "native_loader": "Queue 1, item 15 (native decoder)",
 }
@@ -315,18 +462,32 @@ def main(argv=None) -> dict:
         "default frame-dedup epoch (each unique frame's forward computed "
         "once, per-tuple poses gathered from the pose table)",
     )
+    parser.add_argument(
+        "--quantize", choices=["int8"], default=None,
+        help="run the trunk with int8 post-training quantization "
+        "(models/quant.py; int8 convs on the hand-written CUDA kernel, "
+        "bf16 heads)")
+    parser.add_argument(
+        "--fold_bn", action="store_true",
+        help="serving float path: fold BatchNorm into conv weights+bias "
+        "(no quantization; implied by --quantize)")
+    parser.add_argument(
+        "--calibrate", type=int, default=0, metavar="N",
+        help="with --quantize: observe N eval batches to bake static "
+        "activation scales (default 0 = dynamic per-batch scales)")
+    parser.add_argument(
+        "--quantize_heads", action="store_true",
+        help="with --quantize: run the fc_feat head matmul in int8 too")
+    parser.add_argument(
+        "--fuse_requant", action="store_true",
+        help="with --quantize + --calibrate: int8 dataflow, requantization "
+        "fused into each conv's epilogue; with --device_cache the scene is "
+        "cached as prequantized space-to-depth int8 rows")
     # the JAX CLI's flags that are not ported yet: refused below
-    for flag in ("pose_graph", "fold_bn", "quantize_heads", "fuse_requant",
-                 "eval_dropout", "native_loader"):
+    for flag in ("pose_graph", "eval_dropout", "native_loader"):
         parser.add_argument(f"--{flag}", action="store_true",
                             help=f"not ported yet (ROADMAP.md, "
                             f"{_UNPORTED_FLAGS[flag]})")
-    parser.add_argument("--quantize", choices=["int8"], default=None,
-                        help="not ported yet (ROADMAP.md, "
-                        f"{_UNPORTED_FLAGS['quantize']})")
-    parser.add_argument("--calibrate", type=int, default=0, metavar="N",
-                        help="not ported yet (ROADMAP.md, "
-                        f"{_UNPORTED_FLAGS['calibrate']})")
     args = parser.parse_args(argv)
     for flag, where in _UNPORTED_FLAGS.items():
         if getattr(args, flag):
@@ -398,6 +559,11 @@ def main(argv=None) -> dict:
         num_workers=config.num_workers,
         device_cache=args.device_cache,
         dedup_frames=False if args.no_frame_dedup else None,
+        quantize=args.quantize == "int8",
+        fold_bn=args.fold_bn,
+        calib_batches=args.calibrate,
+        quantize_heads=args.quantize_heads,
+        fuse_requant=args.fuse_requant,
     )
 
     print(

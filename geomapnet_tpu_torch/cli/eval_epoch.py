@@ -24,7 +24,14 @@ through the per-frame PoseNet. Three kinds of epoch:
 
 Dedup (and so slice) runs only for a per-frame tuple model (MapNet): by
 default when it saves windows, always with ``dedup_frames=True`` (which
-PoseNet refuses), never with ``dedup_frames=False``.
+PoseNet refuses), never with ``dedup_frames=False``. Dynamic-scale int8
+(``--quantize`` without ``--calibrate``) is not per-frame: each site
+quantizes at its batch's absmax.
+
+The int8 serving eval's prequantized row cache is a 2-D int8 tensor, one
+row per frame (:func:`geomapnet_tpu_torch.data.device_cache.quantize_rows`);
+its windows are the same ``narrow`` / ``index_select`` of rows, viewed as
+``(B*T,) + frame_shape``.
 
 There is no cache of captured programs and no CUDA graph here: every epoch
 runs the modules it is given eagerly, so nothing can be reused across
@@ -126,12 +133,14 @@ def plan_epoch(idx_mat: np.ndarray, batch_size: int, per_frame: bool,
 def make_step(model: torch.nn.Module, preprocess: Callable | None,
               steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
     """``step(frames) -> poses``: (B*T, H, W, C) frames of B tuples through
-    ``preprocess`` and the per-frame PoseNet (MapNet's shared one) to
-    (B, T, 6) poses."""
+    ``preprocess`` and the per-frame PoseNet (MapNet's shared one, or a
+    :class:`~geomapnet_tpu_torch.models.quant.QuantizedPoseNet`) to
+    (B, T, 6) poses. int8 frames are the prequantized row cache's: they
+    skip ``preprocess``."""
     posenet = getattr(model, "posenet", model)
 
     def step(frames: torch.Tensor) -> torch.Tensor:
-        if preprocess is not None:
+        if preprocess is not None and frames.dtype != torch.int8:
             frames = preprocess(frames)
         return posenet(frames).reshape(-1, steps, 6)
 
@@ -139,18 +148,28 @@ def make_step(model: torch.nn.Module, preprocess: Callable | None,
 
 
 def run_epoch(plan: EpochPlan, frames: torch.Tensor,
-              step: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+              step: Callable[[torch.Tensor], torch.Tensor],
+              frame_shape: tuple | None = None) -> torch.Tensor:
     """Run every window of ``plan`` over the device frame stack ``frames``;
-    returns the (k, B, T, 6) poses on the device (no host sync)."""
+    returns the (k, B, T, 6) poses on the device (no host sync).
+
+    ``frame_shape``: ``frames`` is a 2-D row cache; each window's rows are
+    viewed as ``(B*T,) + frame_shape``.
+    """
+    def view(rows: torch.Tensor) -> torch.Tensor:
+        return rows if frame_shape is None else rows.view(
+            (-1,) + tuple(frame_shape))
+
     outs = []
     with torch.inference_mode():
         if plan.mode == "slice":
             for start in plan.windows.tolist():
-                outs.append(step(frames.narrow(0, start, plan.window_frames)))
+                outs.append(step(view(
+                    frames.narrow(0, start, plan.window_frames))))
         else:
             idx = torch.from_numpy(plan.windows).to(frames.device)
             for row in idx:
-                outs.append(step(frames.index_select(0, row)))
+                outs.append(step(view(frames.index_select(0, row))))
     return torch.stack(outs)
 
 

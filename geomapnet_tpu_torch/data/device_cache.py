@@ -7,6 +7,13 @@ eval epoch afterwards reads its batches from the device tensor
 (:mod:`geomapnet_tpu_torch.cli.eval_epoch`) instead of decoding and
 uploading them again.
 
+For the int8 serving eval (``--fuse_requant``), :func:`quantize_rows`
+turns the uploaded scene into the PREQUANTIZED space-to-depth row cache of
+:func:`geomapnet_tpu.cli.eval._evaluate` (its lines 304-365): with static
+scales the fused trunk's int8 stem input is a per-frame constant, so
+preprocess + quantize + 2x2 space-to-depth run once per scene instead of
+once per window.
+
 Sharded and multi-host uploads, ``FrameRecorder`` and ``IndexLoader`` are
 not ported yet (ROADMAP.md, Queue 1, items 12 and 17).
 """
@@ -16,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["upload_frames"]
+__all__ = ["upload_frames", "quantize_rows", "s2d_frame_shape"]
 
 
 def upload_frames(
@@ -65,6 +72,36 @@ def upload_frames(
         print(f"device frame cache: {n_bad}/{n} frames failed to decode; "
               "substituted neighboring frames")
     return buf
+
+
+def s2d_frame_shape(shape) -> tuple[int, int, int]:
+    """(H, W, C) frame -> its (ceil(H/2), ceil(W/2), 4C) space-to-depth
+    shape, the view each row of :func:`quantize_rows` takes."""
+    h, w, c = shape
+    return ((h + h % 2) // 2, (w + w % 2) // 2, 4 * c)
+
+
+def quantize_rows(frames: torch.Tensor, qnet, preprocess=None,
+                  chunk: int = 64) -> torch.Tensor:
+    """(N, H, W, C) cached frames -> (N, H'*W'*4C) int8 rows: ``preprocess``,
+    then :func:`~geomapnet_tpu_torch.models.quant.quantize_input_int8` at
+    ``qnet``'s static stem scale, then
+    :func:`~geomapnet_tpu_torch.models.quant.space_to_depth_input` (an odd
+    H or W is zero-padded high), ``chunk`` frames at a time so the float
+    intermediate never holds the whole scene. A 256x341 frame becomes one
+    row of 128*171*12 bytes."""
+    from ..models.quant import quantize_input_int8, space_to_depth_input
+
+    n = frames.shape[0]
+    row = int(np.prod(s2d_frame_shape(tuple(frames.shape[1:]))))
+    out = torch.empty((n, row), dtype=torch.int8, device=frames.device)
+    with torch.inference_mode():
+        for s in range(0, n, chunk):
+            b = frames[s:s + chunk]
+            x = preprocess(b) if preprocess is not None else b
+            out[s:s + len(b)] = space_to_depth_input(
+                quantize_input_int8(qnet, x)).reshape(len(b), -1)
+    return out
 
 
 def _probe_frames(frames, n: int, max_bytes: int) -> np.ndarray:

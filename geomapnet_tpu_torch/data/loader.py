@@ -14,7 +14,11 @@ original). It replaces the reference's torch DataLoader + ``safe_collate``
 - **overlap**: a background thread prefetches the next batch while the device
   computes, and with ``num_workers > 1`` samples within a batch are fetched
   by a thread pool. Datasets exposing ``fetch_many(indices)`` get whole-batch
-  fetch requests instead, so they can batch their decodes.
+  fetch requests instead, so they can batch their decodes. A consumer that
+  stops early (``close()`` of the iterator, as a ``break`` does) stops the
+  thread too: it finishes the batch in hand and exits, where the original
+  stays blocked on its queue (or, if the files go away, probes forward
+  through every remaining sample).
 """
 
 from __future__ import annotations
@@ -128,22 +132,37 @@ class Loader:
         """Yields (images, poses, n_padded) with background prefetch."""
         q: queue.Queue = queue.Queue(maxsize=max(1, self.prefetch))
         SENTINEL = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    pass
+            return False
 
         def producer():
             try:
                 for idx, pad in self._batches():
-                    q.put(self._make_batch(idx, pad))
+                    if stop.is_set() or not put(self._make_batch(idx, pad)):
+                        return
             except BaseException as e:  # surfaced in the consumer
-                q.put(e)
+                put(e)
                 return
-            q.put(SENTINEL)
+            put(SENTINEL)
 
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
-        while True:
-            item = q.get()
-            if item is SENTINEL:
-                break
-            if isinstance(item, BaseException):
-                raise item
-            yield item
+        try:
+            while True:
+                item = q.get()
+                if item is SENTINEL:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            thread.join()

@@ -20,7 +20,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["variables_to_state_dict", "load_npz"]
+__all__ = ["variables_to_state_dict", "state_dict_to_variables", "load_npz"]
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
@@ -63,6 +63,40 @@ def variables_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
         sd.setdefault(f"{mod}.num_batches_tracked",
                       torch.zeros((), dtype=torch.int64))
     return sd
+
+
+_FROM_STATS = {v: k for k, v in _STATS.items()}
+
+
+def state_dict_to_variables(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`variables_to_state_dict`: a PoseNet
+    ``state_dict`` -> PoseNet-rooted ``{"params", "batch_stats"}`` numpy
+    tree in the Flax layout, the input of the serving trees
+    (:func:`geomapnet_tpu_torch.models.quant.quantize_posenet_variables`).
+    Transposes only, so every value is carried exactly."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, t in sd.items():
+        *mod, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if leaf in _FROM_STATS:
+            coll, name = "batch_stats", _FROM_STATS[leaf]
+        elif leaf == "weight" and arr.ndim == 4:   # conv OIHW -> HWIO
+            coll, name, arr = "params", "kernel", arr.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and arr.ndim == 2:   # dense (O, I) -> (I, O)
+            coll, name, arr = "params", "kernel", arr.T
+        elif leaf == "weight":                     # BatchNorm
+            coll, name = "params", "scale"
+        elif leaf == "bias":
+            coll, name = "params", "bias"
+        else:
+            raise KeyError(f"unknown state_dict entry {key}")
+        node = out[coll]
+        for p in mod:
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(arr)
+    return out
 
 
 def load_npz(path: str) -> dict:

@@ -5,7 +5,8 @@ TPU kernel ``demosaic_half_normalize``). The kernel lives in
 ``geomapnet_tpu_torch/csrc/demosaic_half_normalize.cu``; it is compiled with
 ``nvcc`` for ``sm_90a`` into ``geomapnet_tpu_torch/_build/`` the first time a
 CUDA tensor reaches :func:`demosaic_half_normalize`, and bound with ctypes
-(plain C entry point; pointers and the stream as ``c_void_p``).
+(:mod:`geomapnet_tpu_torch.ops._nvcc`; plain C entry point, pointers and the
+stream as ``c_void_p``).
 
 :func:`demosaic_half_normalize_reference` is the plain PyTorch version of the
 same function. The wrapper uses it for CPU tensors only; a CUDA tensor
@@ -15,19 +16,14 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
+
+from . import _nvcc
 
 __all__ = [
     "demosaic_half_normalize",
     "demosaic_half_normalize_reference",
-    "build_kernel",
     "launches",
 ]
 
@@ -35,67 +31,23 @@ __all__ = [
 # its main path went through the kernel)
 launches = 0
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "demosaic_half_normalize.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+SOURCE = "demosaic_half_normalize.cu"
 
 # the JAX kernel multiplies by 1/255 rounded to float32 (so does the plain
 # version below; the CUDA source spells the same float as 0x1.010102p-8f)
 _INV255 = 1.0 / 255.0
 
-_lib = None
-_lib_lock = threading.Lock()
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "it is needed to build the demosaic kernel")
-
-
-def build_kernel() -> Path:
-    """Compile the kernel into ``_build/`` (keyed by a hash of its source and
-    flags, so an edited source rebuilds) and return the library path."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libgm_demosaic_{key}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_kernel()))
-            fn = lib.gm_demosaic_half_normalize
-            fn.argtypes = (
-                [ctypes.c_void_p, ctypes.c_void_p]
-                + [ctypes.c_int64] * 3
-                + [ctypes.c_float] * 6
-                + [ctypes.c_int] * 3
-                + [ctypes.c_void_p]
-            )
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.gm_demosaic_half_normalize
+    fn.argtypes = (
+        [ctypes.c_void_p, ctypes.c_void_p]
+        + [ctypes.c_int64] * 3
+        + [ctypes.c_float] * 6
+        + [ctypes.c_int] * 3
+        + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
 
 
 def demosaic_half_normalize_reference(
@@ -157,7 +109,7 @@ def demosaic_half_normalize(
         raise ValueError(f"unsupported device {raw.device}")
     if not raw.is_contiguous():
         raise ValueError("the mosaic must be contiguous")
-    fn = _load().gm_demosaic_half_normalize
+    fn = _nvcc.load(SOURCE, _bind).gm_demosaic_half_normalize
     shape = (n, 3, h // 2, w // 2) if planar else (n, h // 2, w // 2, 3)
     out = torch.empty(shape, dtype=dtype, device=raw.device)
     vec = int(w % 8 == 0 and raw.data_ptr() % 8 == 0)

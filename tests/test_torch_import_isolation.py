@@ -187,6 +187,31 @@ def test_mf_and_loader_copies(kw):
         np.testing.assert_array_equal(pa, pb)
 
 
+def test_loader_stops_its_thread_on_early_exit():
+    """A consumer that stops after two batches stops the prefetch thread:
+    it fetches at most the batches in flight and is gone at ``close()``."""
+    import threading
+    import time
+
+    fetched = []
+
+    class Slow(_Frames):
+        def __getitem__(self, i):
+            fetched.append(i)
+            time.sleep(0.005)
+            return super().__getitem__(i)
+
+    before = threading.active_count()
+    batches = iter(Loader(Slow(n=200), 4, drop_last=False))
+    for _, _batch in zip(range(2), batches):
+        pass
+    batches.close()
+    assert threading.active_count() == before
+    n = len(fetched)
+    time.sleep(0.1)
+    assert len(fetched) == n <= 4 * 5   # 2 taken, 2 queued, 1 in hand
+
+
 def test_loader_shuffled_drop_last_copy():
     frames = _Frames()
     ours = list(Loader(frames, 3, shuffle=True, seed=11))
@@ -327,6 +352,62 @@ def test_robotcar_wrong_size_frame_is_corrupt(tmp_path):
 def test_parse_ini_copy(ini):
     assert dataclasses.asdict(parse_ini(ini)) == dataclasses.asdict(
         jax_parse_ini(ini))
+
+
+@pytest.mark.parametrize("fn", ["_bn_affine", "_fold_conv_bn",
+                                "_fold_conv_bn_float", "_stem_kernel_s2d",
+                                "_walk_and_sites"])
+def test_quant_tree_copies(fn):
+    """The numpy tree preparation of models/quant.py: each copied helper
+    equals the original on the same inputs, exactly."""
+    import geomapnet_tpu.models.quant as jq
+    from geomapnet_tpu_torch.models import quant as pq
+
+    rng = np.random.RandomState(7)
+    bn = {"scale": rng.uniform(0.5, 1.5, 8), "bias": rng.randn(8)}
+    stats = {"mean": rng.randn(8), "var": rng.uniform(0.5, 1.5, 8)}
+    kernel = rng.randn(7, 7, 3, 8)
+    if fn == "_bn_affine":
+        outs = [m._bn_affine(bn, stats) for m in (pq, jq)]
+        for a, b in zip(*outs):
+            np.testing.assert_array_equal(a, b)
+    elif fn == "_stem_kernel_s2d":
+        q = rng.randint(-127, 128, (7, 7, 3, 8)).astype(np.int8)
+        np.testing.assert_array_equal(pq._stem_kernel_s2d(q),
+                                      jq._stem_kernel_s2d(q))
+    elif fn == "_walk_and_sites":
+        # a 2-stage trunk with a projection block: same block walk, same
+        # site order, stage sizes and fusability
+        blk = {f"{c}": {"kernel": kernel} for c in ("conv1", "conv2",
+                                                    "downsample_conv")}
+        blk.update({b: dict(bn) for b in ("bn1", "bn2", "downsample_bn")})
+        blk_s = {b: dict(stats) for b in ("bn1", "bn2", "downsample_bn")}
+        trunk_p = {"conv1": {"kernel": kernel}, "bn1": bn,
+                   "layer1_0": blk, "layer2_0": blk, "layer2_1": blk}
+        trunk_s = {"bn1": stats, "layer1_0": blk_s, "layer2_0": blk_s,
+                   "layer2_1": blk_s}
+        heads = {k: {"kernel": rng.randn(8, 3), "bias": rng.randn(3)}
+                 for k in ("fc_feat", "fc_xyz", "fc_wpqr")}
+        variables = {"params": {"feature_extractor": trunk_p, **heads},
+                     "batch_stats": {"feature_extractor": trunk_s}}
+        trees = [m._prepare_tree(variables, (1, 2), m._fold_conv_bn, True)
+                 for m in (pq, jq)]
+        for m, t in zip((pq, jq), trees):
+            assert m._stage_sizes(t["trunk"]) == (1, 2)
+        sites = [[s["m"] for s in m._iter_sites(t)]
+                 for m, t in zip((pq, jq), trees)]
+        assert len(sites[0]) == len(sites[1]) == 1 + 3 * 3
+        for a, b in zip(*sites):
+            np.testing.assert_array_equal(a, b)
+        assert pq._is_fusable(trees[0]) is jq._is_fusable(trees[1]) is False
+        for site in pq._iter_sites(trees[0]):
+            site["x_scale"] = np.float32(0.1)
+        assert pq._is_fusable(trees[0])
+    else:
+        outs = [getattr(m, fn)(kernel, bn, stats) for m in (pq, jq)]
+        assert outs[0].keys() == outs[1].keys()
+        for k in outs[0]:
+            np.testing.assert_array_equal(outs[0][k], outs[1][k])
 
 
 def test_package_import_loads_no_submodule():
