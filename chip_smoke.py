@@ -33,25 +33,34 @@ prints no result line):
    frames computed, and the CUDA-event time of one device-cache window
    (preprocess + forward of 60 frames) in float32 and bf16.
 5. int8 serving: the int8 conv kernel (K1) and the int8 max-pool kernel
-   (K2), built in phase 1 from ``geomapnet_tpu_torch/csrc/``, must equal
-   their plain PyTorch versions on the card at every geometry of a 60-frame
-   ResNet-34 window (bit for bit on int8 and int32 outputs, within 1 ulp on
-   float32 and bf16), in every epilogue mode; CUDA-event times of both and
-   the bound of each. ``torch._int_mm`` (the int8 ``fc_feat`` head) must
-   equal an exact product. Then the 7Scenes scene of phase 4 through
-   ``cli.eval.main()``: (e) ``--device_cache --quantize int8 --calibrate 2
-   --quantize_heads --fuse_requant`` (the serving configuration: the
-   prequantized space-to-depth row cache), (f) the same without
-   ``--device_cache`` (loader path, 7x7 stem), (g) ``--device_cache
-   --quantize int8 --calibrate 2`` (unfused static int8), (h)
-   ``--device_cache --fold_bn --bf16``. Every pose must be finite; (e) and
-   (f) must agree within 1e-6 of the largest translation; (e) must stay
-   within 12% and (h) within the bf16 tolerance of phase 4's float32 (b);
-   K1 must launch 36 times per forward of 60 frames (the windows and the
-   calibration batches) and K2 once per window; a warm ``evaluate()`` on
-   (e)'s returned int8 rows must equal (e); the fused model on the card must
-   agree with itself on the CPU on a small input. Prints images/s,
-   upload_secs, frames_computed and the CUDA-event time of one int8 window.
+   (K2), built in phase 1 from ``geomapnet_tpu_torch/csrc/`` (K1's ptxas
+   report printed; its body route's SASS must hold GMMA instructions), must
+   equal their plain PyTorch versions on the card at every geometry of a
+   60-frame ResNet-34 window (bit for bit on int8 and int32 outputs, within
+   1 ulp on float32 and bf16), in every epilogue mode, through K1's route
+   for the geometry (body, s2d) and through PR 3's kernel (route simple,
+   the yardstick). Per geometry: kernel_ms and simple_ms (CUDA-graph
+   replays), gemm_ms (``torch._int_mm`` on the geometry's (M, Kpad) x
+   (Kpad, O), not the same function), plain_ms and the bound; K1's host
+   time per launch through ``int8_conv`` and through a prepared site.
+   ``torch._int_mm`` (the int8 ``fc_feat`` head) must equal an exact
+   product. Then the 7Scenes scene of phase 4 through ``cli.eval.main()``:
+   (e) ``--device_cache --quantize int8 --calibrate 2 --quantize_heads
+   --fuse_requant`` (the serving configuration: the prequantized
+   space-to-depth row cache), (f) the same without ``--device_cache``
+   (loader path, 7x7 stem), (g) ``--device_cache --quantize int8
+   --calibrate 2`` (unfused static int8), (h) ``--device_cache --fold_bn
+   --bf16``. Every pose must be finite; (e) and (f) must agree within 1e-6
+   of the largest translation; (e) must stay within 12% and (h) within the
+   bf16 tolerance of phase 4's float32 (b); K1 must launch 36 times per
+   forward of 60 frames (the windows and the calibration batches), 35 of
+   them on the body route, the window's stem on the s2d route and the
+   calibration trunk's 7x7 stem on the simple one, and K2 once per window;
+   a warm ``evaluate()`` on (e)'s returned int8 rows must equal (e); the
+   fused model on the card must agree with itself on the CPU on a small
+   input. Prints images/s, upload_secs, frames_computed, the CUDA-event
+   times of one int8 window and one folded bf16 window, and the int8
+   window's host time per K1 launch.
 
 The line before the last is a JSON object with every kernel's launches on
 its main path, error, times and bound; the last line is
@@ -124,10 +133,76 @@ def cuda_ms(fn, reps: int = 20, groups: int = 5) -> float:
     return float(np.median(times))
 
 
-def profile_window(step, window, reps: int = 5) -> None:
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one ``fn`` from replays of a CUDA graph of ``reps``
+    back-to-back calls (the median of 5): no host work between launches, so
+    a short kernel is not timed at its wrapper's pace. ``fn`` is run once
+    first, outside the graph (builds, prepared launches)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return float(np.median(times))
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host time of one ``fn`` in microseconds: ``reps`` calls queued back to
+    back after a synchronize, without waiting for the card (whose queue
+    does not fill at this count)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def check_k1_build(nvcc, cq) -> None:
+    """K1's compiler report (registers, shared memory, spills per kernel)
+    and its SASS: the body route must run on ``wgmma`` (GMMA instructions)."""
+    lines = [ln.strip() for ln in nvcc.build_log(cq.CONV_SOURCE).splitlines()
+             if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+    for ln in lines:
+        print(f"ptxas K1: {ln}")
+    sass = subprocess.run(
+        [nvcc.tool("cuobjdump"), "-sass", str(nvcc.build(cq.CONV_SOURCE))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    body = [part for part in sass.split("Function : ")[1:]
+            if "int8_conv_body" in part.split("\n", 1)[0]]
+    gmma = [sorted({w for w in part.split() if "GMMA" in w})
+            for part in body]
+    print(f"SASS K1 body route: {len(body)} kernels, GMMA instructions "
+          f"{gmma}")
+    if not body or not all(gmma):
+        raise AssertionError("the body route's SASS has no GMMA instruction")
+
+
+def profile_window(step, window, reps: int = 5) -> float | None:
     """Device time of ``reps`` windows by kernel (``torch.profiler``, self
     device time) and the card's busy share of their wall time; the
-    profiler slows the host, so the idle share is an upper bound."""
+    profiler slows the host, so the idle share is an upper bound. Returns
+    the device's busy ms per window (None when the profiler saw none)."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -150,13 +225,14 @@ def profile_window(step, window, reps: int = 5) -> None:
     busy = sum(r[0] for r in rows)
     if not busy:
         print("profile: no device time recorded (not measured)")
-        return
+        return None
     print(f"profile, {reps} windows: device busy {busy / reps / 1e3} ms of "
           f"{wall_us / reps / 1e3} ms wall per window ({busy / wall_us} "
           f"busy under the profiler)")
     for dev, key, count in sorted(rows, reverse=True)[:8]:
         print(f"  {dev / busy:.4f} of device time, {dev / reps / 1e3} ms "
               f"per window, {count // reps} per window: {key[:90]}")
+    return busy / reps / 1e3
 
 
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -326,17 +402,22 @@ def conv_bound_ms(args: dict, kw: dict, out: torch.Tensor, case) -> tuple:
 
 def check_int8_kernels(cq) -> dict:
     """Phase 5, kernel checks: K1 at every geometry and epilogue of a
-    60-frame window (and the extra ones), K2 at the stem's pool, against
-    their plain versions on the card. Returns per-window totals for the
-    JSON line."""
+    60-frame window (and the extra ones), through its route and through PR
+    3's kernel (route ``simple``, the yardstick), K2 at the stem's pool,
+    against their plain versions on the card. Times: K1 and its yardsticks
+    from CUDA-graph replays (device time), the plain versions from CUDA
+    events. Returns per-window totals for the JSON line."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, launches=0,
-              max_abs_err=0.0, ops_ms=0.0)
+    k1 = dict(ms=0.0, simple_ms=0.0, plain_ms=0.0, bound_ms=0.0, launches=0,
+              max_abs_err=0.0, ops_ms=0.0, routes={})
+    slower = []
     for case in window_convs() + EXTRA_CONVS:
         name, shape, o, ksize, stride, pad, epi, count = case
         args, kw = conv_case(cq, case, gen)
+        plan = cq.conv_plan(shape, o, ksize, stride, pad)
         got = cq.int8_conv(*args.values(), **kw)
         want = cq.int8_conv_reference(*args.values(), **kw)
+        old = cq.int8_conv(*args.values(), **kw, route="simple")
         torch.cuda.synchronize()
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"K1 {name}: {tuple(got.shape)} {got.dtype}"
@@ -353,21 +434,46 @@ def check_int8_kernels(cq) -> dict:
             ndiff, ulps = int((got != want).sum()), bf16_ulps(got, want)
         if ulps > 1:
             raise AssertionError(f"K1 {name} ({epi}): {ulps} ulps off")
-        ms = cuda_ms(lambda: cq.int8_conv(*args.values(), **kw))
+        if not torch.equal(old, got):
+            raise AssertionError(f"K1 {name} ({epi}): the simple route "
+                                 f"differs from route {plan.route}")
+        del old
+        ms = graph_ms(lambda: cq.int8_conv(*args.values(), **kw))
+        simple = graph_ms(lambda: cq.int8_conv(*args.values(), **kw,
+                                               route="simple"))
         plain = cuda_ms(lambda: cq.int8_conv_reference(*args.values(), **kw),
                         reps=3)
+        # a yardstick that is not the same function: the int8 product of
+        # the geometry's (M, Kpad) x (Kpad, O), no im2col, no epilogue
+        a = torch.randint(-127, 128, (got.numel() // o, args["w"].shape[1]),
+                          generator=gen, device="cuda", dtype=torch.int8)
+        gemm = graph_ms(lambda: torch._int_mm(a, args["w"].t()))
+        del a
         bound, by = conv_bound_ms(args, kw, got, case)
+        # operand bytes the body route reads through L2: each block gathers
+        # its A rows and loads its B columns anew
+        kpad = args["w"].shape[1]
+        l2_mb = ((got.numel() // o) * kpad * plan.grid[1]
+                 + plan.grid[0] * o * kpad) / 1e6 if plan.route == "body" \
+            else None
         print(f"K1 {name} {tuple(shape)} -> {tuple(got.shape)} "
               f"{str(got.dtype)[6:]} k{ksize[0]}x{ksize[1]}/s{stride[0]} "
-              f"{epi}: {ndiff} mismatches (max {ulps} ulp, max_abs_err "
-              f"{err}), kernel_ms {ms} plain_ms {plain} bound_ms {bound} "
-              f"({by}), {count} per window")
+              f"{epi} route {plan.route} tile {plan.bm}x{plan.bn}: {ndiff} "
+              f"mismatches (max {ulps} ulp, max_abs_err {err}), kernel_ms "
+              f"{ms} simple_ms {simple} gemm_ms {gemm} plain_ms {plain} "
+              f"bound_ms {bound} ({by}, {bound / ms:.3f} of it), l2_mb {l2_mb}, "
+              f"{count} per window")
         k1["max_abs_err"] = max(k1["max_abs_err"], err)
+        if plan.route == "body" and ms >= simple:
+            slower.append(name)
         if count:
             k1["ms"] += count * ms
+            k1["simple_ms"] += count * simple
             k1["plain_ms"] += count * plain
             k1["bound_ms"] += count * bound
             k1["launches"] += count
+            k1["routes"][plan.route] = k1["routes"].get(plan.route, 0) + \
+                count * ms
             if by == "operations":
                 k1["ops_ms"] += count * bound
         del args, kw, got, want
@@ -376,8 +482,28 @@ def check_int8_kernels(cq) -> dict:
     k1["bound_by"] = ("operations" if k1["ops_ms"] >= k1["bound_ms"] / 2
                       else "bytes")
     print(f"K1 per 60-frame window (36 launches): kernel_ms {k1['ms']} "
-          f"plain_ms {k1['plain_ms']} bound_ms {k1['bound_ms']} "
-          f"({k1['bound_by']}: {k1['ops_ms']} ms of it operations-bound)")
+          f"(by route {k1['routes']}) simple_ms {k1['simple_ms']} "
+          f"({k1['simple_ms'] / k1['ms']:.3f}x the kernel) plain_ms "
+          f"{k1['plain_ms']} bound_ms {k1['bound_ms']} ({k1['bound_by']}: "
+          f"{k1['ops_ms']} ms of it operations-bound; the kernel at "
+          f"{k1['bound_ms'] / k1['ms']:.3f} of it)")
+    print(f"K1 body geometries where PR 3's kernel is as fast or faster: "
+          f"{slower or 'none'}")
+
+    # host cost of a launch: int8_conv (checks and prepares every argument
+    # on each call, as PR 3's wrapper did) against a prepared site
+    case = next(c for c in window_convs() if c[0] == "layer3_conv1")
+    args, kw = conv_case(cq, case, gen)
+    site = cq.PreparedConv(args["w"], args["m"], args["b"], case[3])
+    kw_site = {k: v for k, v in kw.items() if k != "ksize"}
+    before = host_us(lambda: cq.int8_conv(*args.values(), **kw))
+    after = host_us(lambda: site(args["x"], args["s_in"], **kw_site))
+    k1["host_us"] = (before, after)
+    print(f"K1 host time per launch (layer3 3x3, {case[6]}): int8_conv "
+          f"{before} us, prepared site {after} us; device time "
+          f"{graph_ms(lambda: site(args['x'], args['s_in'], **kw_site)) * 1e3}"
+          f" us")
+    del args, kw, site
 
     # K2 at the stem's pool: (60, 128, 171, 64) -> (60, 64, 86, 64)
     x = torch.randint(-127, 128, (MAIN_FRAMES, 128, 171, 64), generator=gen,
@@ -698,8 +824,12 @@ def check_int8_eval(p4: dict, npz: Path, config) -> dict:
         .feature_extractor.stage_sizes
     sites = 1 + 2 * sum(stages) + len(stages) - 1
     windows = e["frames_computed"] // (B * T)
-    want = dict(int8_conv=sites * (windows + CALIBRATE),
-                int8_maxpool3x3s2=windows)
+    # every conv but the stem on the body route; the window's S2D stem on
+    # the s2d route; the calibration trunk's 7x7 stem (3 channels) on simple
+    want = {"int8_conv": sites * (windows + CALIBRATE),
+            "int8_conv.body": (sites - 1) * (windows + CALIBRATE),
+            "int8_conv.s2d": windows, "int8_conv.simple": CALIBRATE,
+            "int8_maxpool3x3s2": windows}
     if launches["e_cache_int8_fused"] != want:
         raise AssertionError(f"(e) launches {launches['e_cache_int8_fused']}"
                              f", expected {want}")
@@ -737,10 +867,28 @@ def check_int8_eval(p4: dict, npz: Path, config) -> dict:
     step = make_step(net, preprocess, T)
     shape = s2d_frame_shape(tuple(frames.shape[1:]))
     window = rows.narrow(0, 0, B * T).view((B * T,) + shape)
+    folded = quant.QuantizedPoseNet(
+        cli_eval._serving_tree(posenet, False, False, 0, None),
+        torch.bfloat16).cuda()
+    folded_step = make_step(folded, builders.build_device_preprocess(
+        "7Scenes", "heads", str(p4["root"] / "assets"), dtype=torch.bfloat16),
+        T)
+    frames_window = frames.narrow(0, 0, B * T)
     with torch.inference_mode():
         ms = cuda_ms(lambda: step(window))
-    print(f"int8 fused window, {B * T} frames of S2D rows {shape}: {ms} ms")
-    profile_window(step, window)
+        folded_ms = cuda_ms(lambda: folded_step(frames_window))
+        # the host's share: windows queued after a synchronize, without
+        # waiting for the card
+        host_ms = host_us(lambda: step(window), reps=20) / 1e3
+    print(f"int8 fused window, {B * T} frames of S2D rows {shape}: {ms} ms "
+          f"(CUDA events, back to back); folded bf16 window (h), {B * T} "
+          f"uint8 frames: {folded_ms} ms")
+    busy_ms = profile_window(step, window)
+    print(f"int8 window host time: {host_ms} ms, {host_ms / sites * 1e3} us "
+          f"per K1 launch ({sites} launches); device busy {busy_ms} ms: the "
+          f"window is "
+          f"{'host' if busy_ms is None or host_ms >= busy_ms else 'device'}"
+          f"-bound")
 
     # the fused model on the card against the CPU on a small input: int8
     # activations exact (the kernels equal their plain versions), bf16
@@ -796,6 +944,7 @@ def main() -> int:
         libs = list(pool.map(_nvcc.build, sources))
     print(f"build: {', '.join(lib.name for lib in libs)} in "
           f"{time.time() - t0:.2f} s")
+    check_k1_build(_nvcc, cuda_quant)
 
     # phase 2: kernel vs plain version, at the main path's shape
     stats = np.loadtxt(ROOT / "data" / "RobotCar" / "loop" / "stats.txt")

@@ -21,8 +21,9 @@ Tree preparation is numpy, copied from the JAX module (its lines 61-195,
 283-293, 446-452 and 526-584): the trees equal the JAX package's bit for
 bit. The forwards run on :class:`QuantizedPoseNet`, an ``nn.Module`` that
 holds a prepared tree's tensors as buffers on the device. Every int8 conv,
-fused or not, runs through the hand-written CUDA kernel K1
-(:func:`geomapnet_tpu_torch.ops.cuda_quant.int8_conv`) and the fused stem's
+fused or not, runs through the hand-written CUDA kernel K1, each site
+through its own :class:`geomapnet_tpu_torch.ops.cuda_quant.PreparedConv`
+(launch arguments prepared once), and the fused stem's
 int8 max-pool through K2
 (:func:`geomapnet_tpu_torch.ops.cuda_quant.int8_maxpool3x3s2`); on CPU
 tensors both take their plain versions. The int8 ``fc_feat`` head's int32
@@ -44,8 +45,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda_quant import (
+    PreparedConv,
     fma_f32,
-    int8_conv,
     int8_maxpool3x3s2,
     pack_conv_weight,
 )
@@ -296,7 +297,8 @@ def _f32(v) -> torch.Tensor:
 
 class _Site(nn.Module):
     """One conv site: packed int8 kernel, ``m``, ``b`` and an optional static
-    ``x_scale``; or, folded float, an OIHW ``kernel`` and ``b``."""
+    ``x_scale``; or, folded float, an OIHW ``kernel`` and ``b``. An int8
+    site runs K1 through :meth:`conv`."""
 
     def __init__(self, q: Mapping):
         super().__init__()
@@ -316,6 +318,18 @@ class _Site(nn.Module):
             self.register_buffer("kernel", torch.from_numpy(
                 np.ascontiguousarray(k.transpose(3, 2, 0, 1))))
         self.register_buffer("b", _f32(q["b"]))
+        self._k1: PreparedConv | None = None
+
+    def conv(self, x: torch.Tensor, s_in, **kw) -> torch.Tensor:
+        """K1 on this site's weights (keywords as
+        :func:`~geomapnet_tpu_torch.ops.cuda_quant.int8_conv`'s, less
+        ``ksize``). The launch arguments are prepared at the first call and
+        again after ``.to()`` moves the buffers."""
+        k1 = self._k1
+        if k1 is None or k1.w is not self.w or k1.m is not self.m \
+                or k1.b is not self.b:
+            k1 = self._k1 = PreparedConv(self.w, self.m, self.b, self.ksize)
+        return k1(x, s_in, **kw)
 
 
 class _Dense(nn.Module):
@@ -415,8 +429,8 @@ def _conv_site(x: torch.Tensor, q: _Site, stride, padding,
         return y + q.b.to(dtype)
     x_scale = q.x_scale if q.x_scale is not None else _dynamic_scale(x)
     qx = _q8(x.to(torch.float32), x_scale).contiguous()
-    return int8_conv(qx, q.w, q.m, q.b, x_scale, ksize=q.ksize,
-                     stride=stride, pad=padding, mode="deq", out_dtype=dtype)
+    return q.conv(qx, x_scale, stride=tuple(stride), pad=padding, mode="deq",
+                  out_dtype=dtype)
 
 
 def _basic_block(x, q, stride, dtype, observe):
@@ -521,20 +535,16 @@ def _fused_basic_block(qx: torch.Tensor, s_in: torch.Tensor, q, stride,
     downsample (float32 dequant) when there is one, conv2 (dequant, add the
     shortcut, relu, requant)."""
     c1, c2 = q["conv1"], q["conv2"]
-    q1 = int8_conv(qx, c1.w, c1.m, c1.b, s_in, ksize=c1.ksize,
-                   stride=stride, pad=_PAD1, mode="relu_q",
-                   s_out=c2.x_scale)
+    stride = tuple(stride)
+    q1 = c1.conv(qx, s_in, stride=stride, pad=_PAD1, mode="relu_q",
+                 s_out=c2.x_scale)
     if "downsample" in q:
-        ds = q["downsample"]
-        idn = int8_conv(qx, ds.w, ds.m, ds.b, s_in, ksize=ds.ksize,
-                        stride=stride, pad=_PAD0, mode="deq",
-                        out_dtype=torch.float32)
-        return int8_conv(q1, c2.w, c2.m, c2.b, c2.x_scale, ksize=c2.ksize,
-                         stride=(1, 1), pad=_PAD1, mode="residual",
-                         residual=idn, s_out=s_out)
-    return int8_conv(q1, c2.w, c2.m, c2.b, c2.x_scale, ksize=c2.ksize,
-                     stride=(1, 1), pad=_PAD1, mode="residual", residual=qx,
-                     res_scale=s_in, s_out=s_out)
+        idn = q["downsample"].conv(qx, s_in, stride=stride, pad=_PAD0,
+                                   mode="deq", out_dtype=torch.float32)
+        return c2.conv(q1, c2.x_scale, stride=(1, 1), pad=_PAD1,
+                       mode="residual", residual=idn, s_out=s_out)
+    return c2.conv(q1, c2.x_scale, stride=(1, 1), pad=_PAD1, mode="residual",
+                   residual=qx, res_scale=s_in, s_out=s_out)
 
 
 def _trunk_forward_fused(qnet: QuantizedPoseNet, x: torch.Tensor,
@@ -553,13 +563,11 @@ def _trunk_forward_fused(qnet: QuantizedPoseNet, x: torch.Tensor,
             # not yet rearranged (a prequantized S2D cache ships 4C-channel
             # frames and skips this)
             qx = space_to_depth_input(qx)
-        qy = int8_conv(qx.contiguous(), c1.w, c1.m, c1.b, s_in,
-                       ksize=(4, 4), stride=(1, 1), pad=((2, 1), (2, 1)),
-                       mode="relu_q", s_out=s1)
+        qy = c1.conv(qx.contiguous(), s_in, stride=(1, 1),
+                     pad=((2, 1), (2, 1)), mode="relu_q", s_out=s1)
     else:
-        qy = int8_conv(qx.contiguous(), c1.w, c1.m, c1.b, s_in,
-                       ksize=c1.ksize, stride=(2, 2), pad=((3, 3), (3, 3)),
-                       mode="relu_q", s_out=s1)
+        qy = c1.conv(qx.contiguous(), s_in, stride=(2, 2),
+                     pad=((3, 3), (3, 3)), mode="relu_q", s_out=s1)
     qy = int8_maxpool3x3s2(qy)
     for i, (q, stride) in enumerate(zip(blocks,
                                         _strides(qnet.stage_sizes))):

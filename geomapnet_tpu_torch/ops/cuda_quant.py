@@ -8,7 +8,13 @@ the port writes both:
 
 - **K1** :func:`int8_conv` (``csrc/int8_conv.cu``): NHWC int8 activation x
   packed int8 weight -> exact int32 accumulator, with the float32 epilogue
-  of ``_deq`` / relu / residual / ``_q8`` in XLA's operation order;
+  of ``_deq`` / relu / residual / ``_q8`` in XLA's operation order. Three
+  routes, picked by channel count (:func:`conv_plan`): ``body`` (C a
+  multiple of 16: ``wgmma`` over a ``cp.async`` ring), ``s2d`` (C = 12: the
+  space-to-depth stem, built for its bytes) and ``simple`` (any other C:
+  the loader path's 3-channel 7x7 stem, on PR 3's ``mma.sync`` kernel).
+  :class:`PreparedConv` holds one conv site's launch arguments, prepared
+  once, so a launch costs the host little;
 - **K2** :func:`int8_maxpool3x3s2` (``csrc/int8_maxpool.cu``): 3x3 stride-2
   max over int8, padded with -127.
 
@@ -29,6 +35,7 @@ reciprocal instead, which is not the same rounding.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -39,6 +46,10 @@ from . import _nvcc
 __all__ = [
     "int8_conv",
     "int8_conv_reference",
+    "PreparedConv",
+    "ConvPlan",
+    "conv_plan",
+    "conv_route",
     "int8_maxpool3x3s2",
     "int8_maxpool3x3s2_reference",
     "pack_conv_weight",
@@ -48,9 +59,11 @@ __all__ = [
     "K_ALIGN",
 ]
 
-# kernel launches made by each wrapper (a run shows with them that its main
-# path went through the kernels)
-launches = {"int8_conv": 0, "int8_maxpool3x3s2": 0}
+ROUTES = ("body", "s2d", "simple")
+# kernel launches made by each wrapper, and by each route of K1 (a run shows
+# with them that its main path went through the kernels)
+launches = {"int8_conv": 0, **{f"int8_conv.{r}": 0 for r in ROUTES},
+            "int8_maxpool3x3s2": 0}
 
 CONV_SOURCE = "int8_conv.cu"
 POOL_SOURCE = "int8_maxpool.cu"
@@ -62,11 +75,21 @@ _OUT_KIND = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2,
              torch.int8: 3}
 
 
+# the C entry point of each route; all take the same arguments: an array of
+# 9 pointers (x, w, m, b, s_in, s_out, s_res, residual, out), an array of 18
+# ints (n, h, w, c, o, kh, kw, sh, sw, pt, pl, oh, ow, kpad, out_kind,
+# res_kind, relu, tile) and the stream
+_ENTRY = {"body": "gm_int8_conv_body", "s2d": "gm_int8_conv_s2d",
+          "simple": "gm_int8_conv"}
+_PTRS = ctypes.c_void_p * 9
+_INTS = ctypes.c_int * 18
+
+
 def _bind_conv(lib: ctypes.CDLL) -> None:
-    fn = lib.gm_int8_conv
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 18 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [_PTRS, _INTS, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
 
 
 def _bind_pool(lib: ctypes.CDLL) -> None:
@@ -97,6 +120,132 @@ def conv_out_hw(h: int, w: int, ksize, stride, pad) -> tuple[int, int]:
     (pt, pb), (pl, pr) = pad
     return ((h + pt + pb - ksize[0]) // stride[0] + 1,
             (w + pl + pr - ksize[1]) // stride[1] + 1)
+
+
+# ------------------------------------------------------------- K1's tile plan
+#
+# Mirrors the constants of csrc/int8_conv.cu: the CPU tests hold the plan
+# to what the kernels need (a valid wgmma width, shared memory that fits,
+# a grid that covers the output).
+
+SM_COUNT = 132            # streaming multiprocessors of an H100 SXM
+SMEM_PER_BLOCK = 232448   # the most dynamic shared memory a block can have
+SMEM_PER_SM = 233472      # an SM's shared memory (1 KB of it per block is
+                          # the runtime's)
+BODY_BM, BODY_BK = 128, 128
+BODY_THREADS = 256        # 2 warpgroups: each copies and multiplies
+BODY_BN = (64, 128, 256)  # the wgmma widths the body route instantiates
+BODY_STAGES = {64: 3, 128: 3, 256: 4}   # ring stages of each width
+BODY_BLOCKS_PER_SM = {64: 3, 128: 2, 256: 1}   # its launch bounds
+S2D_C, S2D_O, S2D_THREADS, S2D_K = 12, 64, 128, 192
+S2D_ROWS = 2              # output rows per s2d block
+S2D_GEOMETRY = ((4, 4), (1, 1), ((2, 1), (2, 1)))
+SIMPLE_BM = SIMPLE_BN = 64
+SIMPLE_THREADS = 128
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """How K1 runs one conv: the route, its output tile (``bm`` pixels x
+    ``bn`` channels per block), grid, threads and dynamic shared memory, and
+    ``tile``, the C entry point's route argument (BN for ``body``, the
+    gather width for ``simple``)."""
+
+    route: str
+    bm: int
+    bn: int
+    grid: tuple
+    threads: int
+    smem: int
+    tile: int
+
+
+def body_smem(bn: int) -> int:
+    """Dynamic shared memory of a body block (``BodyCfg<BN, S>::SMEM``):
+    1 KB of alignment slack, the ring or the staged float tile, then ``ms``
+    and ``b``."""
+    ring = BODY_STAGES[bn] * (BODY_BM + bn) * BODY_BK
+    staging = BODY_BM * (bn + 4) * 4
+    return 1024 + max(ring, staging) + 8 * bn
+
+
+def s2d_row_bytes(ow: int) -> int:
+    """Shared bytes of one input row of the s2d route (``s2d_row_bytes``)."""
+    return (48 + (-(-ow // 16) * 16 + 2) * S2D_C + 16 + 15) // 16 * 16
+
+
+def s2d_smem(ow: int, direct: bool = False) -> int:
+    """Dynamic shared memory of an s2d block (``s2d_smem``): the input rows
+    of its output rows, the weight in rows of 208 bytes, the rows' offsets,
+    ``ms`` and ``b``, one output row staged: as int8 rows of 80 bytes for
+    the stem's own epilogue (``direct``: relu_q, no residual), else as
+    floats (the plan states this, the larger)."""
+    row = S2D_O + 16 if direct else (S2D_O + 4) * 4
+    return ((S2D_ROWS + 3) * s2d_row_bytes(ow) + S2D_O * (S2D_K + 16) + 32
+            + 2 * S2D_O * 4 + -(-ow // 16) * 16 * row)
+
+
+def _body_bn(o: int) -> int:
+    """The body tile's width: 64 for up to 64 output channels, 128 up to
+    256, else 256. Timing every width at every body geometry of the window
+    on an H100 chose it: 128 beat 64 at layers 2 and 3, and 256 matched or
+    beat 128 at layer 4, whose M = 5,280 makes 42 x 2 blocks of 128 x 256,
+    one wave on 132 SMs."""
+    return 64 if o <= 64 else 128 if o <= 256 else 256
+
+
+def conv_route(c: int) -> str:
+    """K1's route for a conv with ``c`` input channels: ``body`` for a
+    multiple of 16, ``s2d`` for the 12-channel space-to-depth stem (its
+    geometry is checked by :func:`conv_plan`), ``simple`` otherwise."""
+    if c % 16 == 0:
+        return "body"
+    if c == S2D_C:
+        return "s2d"
+    return "simple"
+
+
+def conv_plan(shape, o: int, ksize, stride, pad, route: str | None = None
+              ) -> ConvPlan:
+    """K1's plan for an (N, H, W, C) int8 input and ``o`` output channels:
+    the route by channel count (:func:`conv_route`) unless ``route`` names
+    one (``simple`` runs any geometry: the old kernel as a yardstick).
+    Raises when the route cannot run the geometry."""
+    n, h, w, c = shape
+    ksize, stride = tuple(ksize), tuple(stride)
+    pad = tuple(tuple(p) for p in pad)
+    oh, ow = conv_out_hw(h, w, ksize, stride, pad)
+    m = n * oh * ow
+    route = route or conv_route(c)
+    if route == "body":
+        if c % 16 or o % 16:
+            raise ValueError(f"the body route needs input and output "
+                             f"channels that are multiples of 16, got {c} "
+                             f"and {o}")
+        bn = _body_bn(o)
+        return ConvPlan("body", BODY_BM, bn,
+                        (-(-m // BODY_BM), -(-o // bn)), BODY_THREADS,
+                        body_smem(bn), bn)
+    if route == "s2d":
+        if (c, o) != (S2D_C, S2D_O) or (ksize, stride, pad) != S2D_GEOMETRY:
+            raise ValueError(
+                f"the s2d route runs the {S2D_C}-channel 4x4 stride-1 stem "
+                f"with pad ((2, 1), (2, 1)) and {S2D_O} outputs, got {c} "
+                f"channels, {o} outputs, {ksize} {stride} {pad}")
+        smem = s2d_smem(ow)
+        if smem > SMEM_PER_BLOCK:
+            raise ValueError(f"an s2d row of {ow} pixels needs {smem} bytes "
+                             f"of shared memory")
+        # grid: the pairs of output rows; the kernel is persistent and
+        # launches as many blocks as the card holds at once to walk them
+        return ConvPlan("s2d", ow, S2D_O, (n * -(-oh // S2D_ROWS), 1),
+                        S2D_THREADS, smem, 0)
+    if route == "simple":
+        vec = 16 if c % 16 == 0 else 4 if c % 4 == 0 else 1
+        return ConvPlan("simple", SIMPLE_BM, SIMPLE_BN,
+                        (-(-m // SIMPLE_BM), -(-o // SIMPLE_BN)),
+                        SIMPLE_THREADS, 0, vec)
+    raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
@@ -234,9 +383,108 @@ def int8_conv_reference(x, w, m, b, s_in=None, *, ksize, stride, pad, mode,
                        ).to(torch.int8)
 
 
+def _scale_arg(v, device, index: int):
+    """A scale as a 0-dim float32 tensor on ``device`` (CUDA device
+    ``index``): the tensor itself when it is one (no copy), else a new one
+    (a Python float)."""
+    if (type(v) is torch.Tensor and v.dtype is torch.float32
+            and v.get_device() == index and v.numel() == 1):
+        return v
+    return _scale(v, device)
+
+
+class _Launch:
+    """One K1 launch, prepared: the route's bound C function, the weight,
+    ``m`` and ``b`` pointers and every integer argument, checked once. A
+    call checks and adds what changes from call to call (the activation,
+    the scales, the residual, a new output) and launches on the current
+    stream."""
+
+    __slots__ = ("fn", "ptrs", "ints", "out_shape", "out_dtype", "device",
+                 "index", "counter", "res_kind", "needs_s_in", "scales")
+
+    def __init__(self, x, w, m, b, ksize, stride, pad, mode, s_out,
+                 residual, res_scale, out_dtype, route=None):
+        n, h, wd, c, o, oh, ow, out_dt = _check_conv(
+            x, w, m, b, ksize, stride, pad, mode, s_out, residual, res_scale,
+            out_dtype)
+        for name, t in (("w", w), ("m", m), ("b", b)):
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        if w.data_ptr() % 16:
+            raise ValueError("the packed weight must be 16-byte aligned")
+        plan = conv_plan(x.shape, o, ksize, stride, pad, route)
+        self.fn = getattr(_nvcc.load(CONV_SOURCE, _bind_conv),
+                          _ENTRY[plan.route])
+        self.counter = f"int8_conv.{plan.route}"
+        # the argument arrays, made once: a call sets only the pointers that
+        # change (so a prepared launch serves one thread at a time)
+        self.ptrs = _PTRS(0, w.data_ptr(), m.data_ptr(), b.data_ptr())
+        (pt, _), (pl, _) = pad
+        self.res_kind = 0 if residual is None else (
+            2 if residual.dtype == torch.int8 else 1)
+        self.ints = _INTS(n, h, wd, c, o, ksize[0], ksize[1], stride[0],
+                          stride[1], pt, pl, oh, ow, w.shape[1],
+                          _OUT_KIND[out_dt], self.res_kind,
+                          int(mode in ("relu_q", "residual")), plan.tile)
+        self.scales = None   # the scale tensors of the last call
+        self.out_shape = (n, oh, ow, o)
+        self.out_dtype = out_dt
+        self.device = x.device
+        self.index = x.device.index if x.device.index is not None else \
+            torch.cuda.current_device()
+        self.needs_s_in = mode != "acc"
+
+    def __call__(self, x, s_in, s_out, residual, res_scale) -> torch.Tensor:
+        index = self.index
+        if x.get_device() != index or x.dtype is not torch.int8:
+            raise ValueError(f"x must be int8 on cuda:{index}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError("x must be contiguous and 16-byte aligned")
+        if residual is not None and (
+                residual.get_device() != index
+                or not residual.is_contiguous() or residual.data_ptr() % 16):
+            raise ValueError(f"residual must be on cuda:{index}, contiguous "
+                             f"and 16-byte aligned")
+        ptrs = self.ptrs
+        raw = (s_in if self.needs_s_in else None, s_out,
+               res_scale if self.res_kind == 2 else None)
+        last = self.scales
+        if last is None or any(a is not b for a, b in zip(raw, last)):
+            # new scale objects: check them (a static site passes the same
+            # tensors every call); they stay referenced while in use
+            if self.needs_s_in and s_in is None:
+                raise ValueError("this mode needs s_in")
+            scales = tuple(None if v is None else
+                           _scale_arg(v, self.device, index) for v in raw)
+            for i, v in enumerate(scales):
+                ptrs[4 + i] = None if v is None else v.data_ptr()
+            # keep them for the next call unless a float made a new tensor
+            self.scales = scales if all(
+                a is b for a, b in zip(scales, raw)) else None
+        out = torch.empty(self.out_shape, dtype=self.out_dtype,
+                          device=self.device)
+        ptrs[0] = x.data_ptr()
+        ptrs[7] = None if residual is None else residual.data_ptr()
+        ptrs[8] = out.data_ptr()
+        if torch._C._cuda_getDevice() == index:
+            err = self.fn(ptrs, self.ints,
+                          torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                err = self.fn(ptrs, self.ints,
+                              torch._C._cuda_getCurrentRawStream(index))
+        if err != 0:
+            raise RuntimeError(f"int8_conv kernel launch failed: cudaError_t "
+                               f"{err}")
+        launches["int8_conv"] += 1
+        launches[self.counter] += 1
+        return out
+
+
 def int8_conv(x, w, m, b, s_in=None, *, ksize, stride, pad, mode,
               s_out=None, residual=None, res_scale=None,
-              out_dtype=torch.float32) -> torch.Tensor:
+              out_dtype=torch.float32, route=None) -> torch.Tensor:
     """NHWC int8 conv with an exact int32 accumulator and a float32 epilogue.
 
     :param x: (N, H, W, C) int8 activation
@@ -251,10 +499,14 @@ def int8_conv(x, w, m, b, s_in=None, *, ksize, stride, pad, mode,
         ``s_out``), "residual" (add ``residual`` — float32, or int8 at
         ``res_scale`` as one FMA — then relu; int8 at ``s_out``, or float32
         when ``s_out`` is None)
+    :param route: K1's route on the card, by default :func:`conv_route`'s;
+        ``"simple"`` runs any geometry on PR 3's kernel (a yardstick)
     :returns: (N, OH, OW, O)
 
-    A CUDA tensor runs the kernel on the current stream; a CPU tensor runs
-    :func:`int8_conv_reference`.
+    A CUDA tensor runs the kernel on the current stream (every operand
+    contiguous and 16-byte aligned); a CPU tensor runs
+    :func:`int8_conv_reference`. This checks and prepares every argument on
+    each call; :class:`PreparedConv` does that once per site and shape.
     """
     stride = tuple(stride)
     if x.device.type == "cpu":
@@ -264,43 +516,43 @@ def int8_conv(x, w, m, b, s_in=None, *, ksize, stride, pad, mode,
             out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    n, h, wd, c, o, oh, ow, out_dt = _check_conv(
-        x, w, m, b, ksize, stride, pad, mode, s_out, residual, res_scale,
-        out_dtype)
-    for name, t in (("x", x), ("w", w), ("m", m), ("b", b),
-                    ("residual", residual)):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if w.data_ptr() % 16:
-        raise ValueError("the packed weight must be 16-byte aligned")
-    dev = x.device
-    scales = [_scale(v, dev) for v in (
-        None if mode == "acc" else s_in, s_out,
-        res_scale if residual is not None and residual.dtype == torch.int8
-        else None)]
-    if mode != "acc" and scales[0] is None:
-        raise ValueError(f"mode {mode!r} needs s_in")
-    vec = (16 if c % 16 == 0 and x.data_ptr() % 16 == 0
-           else 4 if c % 4 == 0 and x.data_ptr() % 4 == 0 else 1)
-    res_kind = 0 if residual is None else (
-        2 if residual.dtype == torch.int8 else 1)
-    out = torch.empty((n, oh, ow, o), dtype=out_dt, device=dev)
-    fn = _nvcc.load(CONV_SOURCE, _bind_conv).gm_int8_conv
-    (pt, _), (pl, _) = pad
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), m.data_ptr(), b.data_ptr(),
-                 *(0 if s is None else s.data_ptr() for s in scales),
-                 0 if residual is None else residual.data_ptr(),
-                 out.data_ptr(), n, h, wd, c, o, ksize[0], ksize[1],
-                 stride[0], stride[1], pt, pl, oh, ow, w.shape[1],
-                 _OUT_KIND[out_dt], res_kind,
-                 int(mode in ("relu_q", "residual")), vec, stream)
-    if err != 0:
-        raise RuntimeError(f"int8_conv kernel launch failed: cudaError_t "
-                           f"{err}")
-    launches["int8_conv"] += 1
-    return out
+    return _Launch(x, w, m, b, ksize, stride, pad, mode, s_out, residual,
+                   res_scale, out_dtype, route)(x, s_in, s_out, residual,
+                                                res_scale)
+
+
+class PreparedConv:
+    """K1 for one conv site: the packed weight, ``m`` and ``b`` fixed, and
+    the launch arguments prepared once per input shape, stride, padding and
+    epilogue (the wrapper's checks of what those fix run then, not on every
+    call). A call on CPU tensors runs :func:`int8_conv` (the plain
+    version)."""
+
+    def __init__(self, w: torch.Tensor, m: torch.Tensor, b: torch.Tensor,
+                 ksize):
+        self.w, self.m, self.b = w, m, b
+        self.ksize = tuple(ksize)
+        self._launches: dict = {}
+
+    def __call__(self, x, s_in=None, *, stride, pad, mode, s_out=None,
+                 residual=None, res_scale=None, out_dtype=torch.float32
+                 ) -> torch.Tensor:
+        if not x.is_cuda:
+            return int8_conv(x, self.w, self.m, self.b, s_in,
+                             ksize=self.ksize, stride=stride, pad=pad,
+                             mode=mode, s_out=s_out, residual=residual,
+                             res_scale=res_scale, out_dtype=out_dtype)
+        # device and dtype are checked by the prepared launch
+        key = (x.shape, stride, pad, mode, out_dtype, s_out is None,
+               res_scale is None,
+               None if residual is None else (residual.shape,
+                                              residual.dtype))
+        launch = self._launches.get(key)
+        if launch is None:
+            launch = self._launches[key] = _Launch(
+                x, self.w, self.m, self.b, self.ksize, tuple(stride), pad,
+                mode, s_out, residual, res_scale, out_dtype)
+        return launch(x, s_in, s_out, residual, res_scale)
 
 
 def int8_maxpool3x3s2_reference(x: torch.Tensor) -> torch.Tensor:

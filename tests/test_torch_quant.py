@@ -531,27 +531,26 @@ def test_error_contracts_match_jax(variables, bottleneck_variables,
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """K1 in every epilogue and K2 equal their plain versions on the card
-    (run by ``python -m pytest tests/test_torch_quant.py -m cuda`` there)."""
+    """K1 in every epilogue, through its route for each geometry and
+    through the simple route, and K2 equal their plain versions on the card
+    (run by ``python -m pytest tests/test_torch_quant.py -m cuda`` there),
+    each route counting its own launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the kernels build and run only "
                     "there")
+    from test_torch_k1 import EPILOGUES, assert_k1_matches_plain_on_card
+
+    got = assert_k1_matches_plain_on_card(GEOMETRIES)
+    routes = [CQ.conv_route(v[0][3]) for v in GEOMETRIES.values()]
+    assert set(routes) == set(CQ.ROUTES)
+    for route in CQ.ROUTES:
+        assert got[f"int8_conv.{route}"] == len(EPILOGUES) * (
+            routes.count(route) + (len(routes) if route == "simple" else 0))
+    assert got["int8_conv"] == 2 * len(EPILOGUES) * len(GEOMETRIES)
     before = dict(CQ.launches)
-    for name, (shape, o, ksize, stride, pad) in GEOMETRIES.items():
-        x, k, m, b = _conv_operands(shape, o, ksize)
-        args = [torch.from_numpy(v).cuda() for v in (x, k, m, b)]
-        args[1] = CQ.pack_conv_weight(args[1])
-        geo = dict(ksize=ksize, stride=stride, pad=pad)
-        for kw in (dict(mode="acc"), dict(mode="deq"),
-                   dict(mode="relu_q", s_out=3 / 127)):
-            got = CQ.int8_conv(*args, 1.0, **geo, **kw)
-            want = CQ.int8_conv_reference(*args, 1.0, **geo, **kw)
-            assert torch.equal(got, want), (name, kw)
     x = torch.randint(-127, 128, (2, 33, 47, 64), dtype=torch.int8,
                       device="cuda")
     assert torch.equal(CQ.int8_maxpool3x3s2(x),
                        CQ.int8_maxpool3x3s2_reference(x))
-    assert CQ.launches["int8_conv"] - before["int8_conv"] == \
-        3 * len(GEOMETRIES)
     assert CQ.launches["int8_maxpool3x3s2"] - before["int8_maxpool3x3s2"] \
         == 1
