@@ -61,6 +61,27 @@ prints no result line):
    input. Prints images/s, upload_secs, frames_computed, the CUDA-event
    times of one int8 window and one folded bf16 window, and the int8
    window's host time per K1 launch.
+6. MapNet+PGO and eval-time dropout: (a) ``optimize_poses_batch`` on the
+   card against itself on the CPU, float32, within ``PGO_TOL``, at 1,000
+   windows of 7 poses with chain VOs (the 7Scenes shape) and with
+   all-pairs VOs (P = 21, the RobotCar shape), on noisy trajectories made
+   from the seed; and on the card against the upstream reference's PGO
+   goldens (tests/golden_reference.py) within 2e-3. (b) the CUDA-event time
+   of one call at each shape, windows/s, the host's wall time of a call
+   and the card's busy time and kernel count under ``torch.profiler``.
+   (c) phase 4's scene with DSO "real" poses written beside it, through
+   ``cli.eval.main()`` with configs/pgo_inference_7Scenes.ini (steps 7,
+   skip 150, real, dso, unit weights) and ``--pose_graph``: (i)
+   ``--device_cache`` float32 (slice epoch), (j) the serving configuration,
+   where K1 and K2 must launch once per site and window under PGO. Finite
+   errors; the two PGO'd translation medians, their gap against the
+   largest f32 translation (within ``INT8_TOL``) and PGO's share of each
+   run's wall time. (d) ``--eval_dropout`` through the CLI: the 500-frame
+   scene on the tuple epoch (``--device_cache --no_frame_dedup``), which
+   must differ from phase 4's deterministic (c); then a 60-frame scene,
+   whose tuple epoch must give bit-identical poses on a rerun with the same
+   seed, other poses with another seed, and bit-identical poses on the
+   loader path.
 
 The line before the last is a JSON object with every kernel's launches on
 its main path, error, times and bound; the last line is
@@ -104,6 +125,15 @@ K2_SOURCE = "geomapnet_tpu_torch/csrc/int8_maxpool.cu"
 # the JAX package has no TPU kernel here: XLA lowered these lines
 K1_REPLACES = "geomapnet_tpu/models/quant.py:351"
 K2_REPLACES = "geomapnet_tpu/models/quant.py:429"
+PGO_WINDOWS = 1000        # about a 7Scenes test split's tuples
+PGO_STEPS = 7
+# float32 PGO on the card against float32 PGO on the CPU: ten Gauss-Newton
+# iterations whose products and factorizations sum in another order; the
+# CPU tests hold the port's float32 solve to JAX's within 2e-5
+PGO_TOL = 1e-4
+GOLDEN_TOL = 2e-3         # tests/test_golden_parity.py::TestPGO
+PGO_CONFIG = "configs/pgo_inference_7Scenes.ini"
+SMALL_SCENE_FRAMES = 60
 
 
 def card_line() -> str:
@@ -200,9 +230,10 @@ def check_k1_build(nvcc, cq) -> None:
 
 def profile_window(step, window, reps: int = 5) -> float | None:
     """Device time of ``reps`` windows by kernel (``torch.profiler``, self
-    device time) and the card's busy share of their wall time; the
-    profiler slows the host, so the idle share is an upper bound. Returns
-    the device's busy ms per window (None when the profiler saw none)."""
+    device time), the kernels launched per window and the card's busy share
+    of their wall time; the profiler slows the host, so the idle share is
+    an upper bound. Returns the device's busy ms per window (None when the
+    profiler saw none)."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -226,9 +257,11 @@ def profile_window(step, window, reps: int = 5) -> float | None:
     if not busy:
         print("profile: no device time recorded (not measured)")
         return None
+    kernels = sum(r[2] for r in rows) / reps
     print(f"profile, {reps} windows: device busy {busy / reps / 1e3} ms of "
           f"{wall_us / reps / 1e3} ms wall per window ({busy / wall_us} "
-          f"busy under the profiler)")
+          f"busy under the profiler), {kernels} device operations per "
+          f"window")
     for dev, key, count in sorted(rows, reverse=True)[:8]:
         print(f"  {dev / busy:.4f} of device time, {dev / reps / 1e3} ms "
               f"per window, {count // reps} per window: {key[:90]}")
@@ -910,6 +943,266 @@ def check_int8_eval(p4: dict, npz: Path, config) -> dict:
     return launches["e_cache_int8_fused"]
 
 
+def pgo_windows(n_windows: int, n: int, fc: bool, seed: int):
+    """Noisy predicted poses around smooth random trajectories, the VOs of
+    those trajectories (chain, or all pairs with ``fc``) and the
+    trajectories: (W, n, 7) and (W, P, 7) float32, (W, n, 7) float64."""
+    from geomapnet_tpu_torch.geometry import (
+        pair_indices_fc,
+        qexp_np,
+        qinv_np,
+        qmult_np,
+        rotate_vector_np,
+    )
+    from geomapnet_tpu_torch.pgo import chain_pairs
+
+    rng = np.random.RandomState(seed)
+    half_yaw = (rng.uniform(-np.pi, np.pi, (n_windows, 1))
+                + 0.15 * np.arange(n)) / 2
+    zero = np.zeros_like(half_yaw)
+    q = np.stack([np.cos(half_yaw), zero, zero, np.sin(half_yaw)], -1)
+    q = qmult_np(q, qexp_np(rng.randn(n_windows, n, 3) * 0.03))
+    t = np.cumsum(rng.randn(n_windows, n, 3) * 0.3, axis=1)
+    i, j = pair_indices_fc(n) if fc else chain_pairs(n)
+    qi_inv = qinv_np(q[:, i])
+    vos = np.concatenate([rotate_vector_np(t[:, j] - t[:, i], qi_inv),
+                          qmult_np(qi_inv, q[:, j])], -1)
+    noisy_q = q + rng.randn(*q.shape) * 0.02
+    noisy_q /= np.linalg.norm(noisy_q, axis=-1, keepdims=True)
+    noisy = np.concatenate([t + rng.randn(*t.shape) * 0.1, noisy_q], -1)
+    return (noisy.astype(np.float32), vos.astype(np.float32),
+            np.concatenate([t, q], -1))
+
+
+def check_pgo(card: str) -> dict:
+    """Phase 6 (a)-(b): PGO on the card against the upstream goldens and
+    against the port's PGO on the CPU, then its times. Returns windows/s
+    and ms per call by shape."""
+    from geomapnet_tpu_torch.pgo import gauss_newton_pgo, optimize_poses_batch
+
+    spec = importlib.util.spec_from_file_location(
+        "golden_reference", ROOT / "tests" / "golden_reference.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    gold = mod.GOLDEN
+    for name, vos, kw in (
+            ("pgo_chain_out", gold["pgo_vos"][:2], {}),
+            ("pgo_chain_w_out", gold["pgo_vos"][:2],
+             dict(sax=0.5, saq=0.5, srx=10.0, srq=10.0)),
+            ("pgo_fc_out", gold["pgo_fc_vos"], dict(fc=True))):
+        out = gauss_newton_pgo(gold["pgo_poses"].astype(np.float32),
+                               vos.astype(np.float32), device="cuda", **kw)
+        err = float(np.abs(out.cpu().numpy() - gold[name]).max())
+        print(f"PGO golden {name}, float32 on the card: max abs err {err} "
+              f"(bound {GOLDEN_TOL})")
+        if not err <= GOLDEN_TOL:
+            raise AssertionError(f"PGO {name} off the golden by {err}")
+
+    out = {}
+    for shape, fc in (("chain", False), ("fc", True)):
+        poses, vos, truth = pgo_windows(PGO_WINDOWS, PGO_STEPS, fc,
+                                        SEED + fc)
+        p, v = torch.from_numpy(poses), torch.from_numpy(vos)
+        pc, vc = p.cuda(), v.cuda()
+        t0 = time.perf_counter()
+        card_out = optimize_poses_batch(pc, vc, fc=fc)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        cpu_out = optimize_poses_batch(p, v, fc=fc)
+        f64_out = optimize_poses_batch(p.double(), v.double(), fc=fc)
+        got = card_out.cpu()
+        err = float((got - cpu_out).abs().max())
+        err64 = float((got.double() - f64_out).abs().max())
+        moved = float((got - p).abs().max())
+        before = np.linalg.norm(poses[..., :3] - truth[..., :3], axis=-1)
+        after = np.linalg.norm(got.numpy()[..., :3] - truth[..., :3],
+                               axis=-1)
+        print(f"PGO {shape} {tuple(p.shape)} VOs {tuple(v.shape)}: card vs "
+              f"CPU float32 max abs diff {err} (bound {PGO_TOL}), card "
+              f"float32 vs CPU float64 {err64}; poses moved up to {moved}; "
+              f"mean translation error {before.mean()} -> {after.mean()}")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"PGO {shape}: non-finite poses")
+        if not err <= PGO_TOL:
+            raise AssertionError(f"PGO {shape}: card vs CPU {err}")
+        if not after.mean() < before.mean():
+            raise AssertionError(f"PGO {shape} did not reduce the error")
+
+        ms = cuda_ms(lambda: optimize_poses_batch(pc, vc, fc=fc), reps=5,
+                     groups=5)
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            optimize_poses_batch(pc, vc, fc=fc)   # ends on a host sync
+            host.append((time.perf_counter() - t0) * 1e3)
+        host_ms = float(np.median(host))
+        busy_ms = profile_window(
+            lambda _: optimize_poses_batch(pc, vc, fc=fc), None, reps=3)
+        rate = PGO_WINDOWS / (ms / 1e3)
+        print(f"PGO {shape} timing ({card}): {ms} ms per call of "
+              f"{PGO_WINDOWS} windows (CUDA events) = {rate:.1f} windows/s; "
+              f"host wall of a call {host_ms} ms (first call {first_ms} ms); "
+              f"device busy {busy_ms} ms per call")
+        out[shape] = dict(ms=ms, windows_per_s=rate, host_ms=host_ms,
+                          busy_ms=busy_ms)
+    return out
+
+
+def write_dso_vo(root: Path, n: int, seq: int = 2) -> None:
+    """DSO "real" poses for 7Scenes sequence ``seq`` of the scene at
+    ``root``, where ``data/sevenscenes.py::_vo_sequence`` reads them:
+    ``dso_poses/seq-XX.txt`` (frame number, then the 3x4 [R|t] of the
+    ground-truth pose with noise, mapped by the inverse of the alignment)
+    and ``seq-XX/dso_vo_stats.pkl`` (the alignment)."""
+    import pickle
+
+    from geomapnet_tpu_torch.geometry import euler2mat
+
+    rng = np.random.RandomState(SEED + 3)
+    gt_dir = root / "deepslam" / "7Scenes" / "heads" / f"seq-{seq:02d}"
+    assets = root / "assets" / "7Scenes" / "heads"
+    align = {"R": euler2mat(0, 0, 0.1), "t": np.array([0.05, -0.02, 0.01]),
+             "s": 1.1}
+    rows = []
+    for i in range(n):
+        pose = np.loadtxt(gt_dir / f"frame-{i:06d}.pose.txt")
+        R = pose[:3, :3] @ euler2mat(*(rng.randn(3) * 0.01))
+        t = (pose[:3, 3] + rng.randn(3) * 0.01 - align["t"]) / align["s"]
+        rows.append(np.concatenate([[i], np.concatenate(
+            [align["R"].T @ R, (align["R"].T @ t)[:, None]], 1).ravel()]))
+    (assets / "dso_poses").mkdir(exist_ok=True)
+    np.savetxt(assets / "dso_poses" / f"seq-{seq:02d}.txt", np.stack(rows))
+    (assets / f"seq-{seq:02d}").mkdir(exist_ok=True)
+    with open(assets / f"seq-{seq:02d}" / "dso_vo_stats.pkl", "wb") as f:
+        pickle.dump(align, f)
+
+
+def replace_args(argv: list, **values) -> list:
+    """``argv`` with the value after each ``--<key>`` set to
+    ``values[key]``."""
+    out = list(argv)
+    for flag, value in values.items():
+        out[out.index(f"--{flag}") + 1] = str(value)
+    return out
+
+
+def check_pgo_eval(p4: dict) -> dict:
+    """Phase 6 (c): the 7Scenes PGO eval through the CLI, float32 from the
+    device cache and the int8 serving configuration. Returns K1's and K2's
+    launches in the serving run."""
+    from geomapnet_tpu_torch.cli import eval as cli_eval
+    from geomapnet_tpu_torch.cli.config import parse_ini
+    from geomapnet_tpu_torch.ops import cuda_quant
+
+    write_dso_vo(p4["root"], SEVEN_SCENES_FRAMES)
+    config_file = ROOT / PGO_CONFIG
+    config = parse_ini(config_file)
+    B, T = config.batch_size, config.steps
+    argv = replace_args(p4["argv"], config_file=config_file,
+                        batch_size=B) + ["--pose_graph", "--device_cache"]
+    serving = ["--quantize", "int8", "--calibrate", str(CALIBRATE),
+               "--quantize_heads", "--fuse_requant"]
+    runs, launches = {}, {}
+    for name, extra in (("i_pgo_cache_f32", []),
+                        ("j_pgo_cache_int8_fused", serving)):
+        for k in cuda_quant.launches:
+            cuda_quant.launches[k] = 0
+        t0 = time.time()
+        res = cli_eval.main(argv + extra)
+        wall = time.time() - t0
+        launches[name] = dict(cuda_quant.launches)
+        runs[name] = res
+        print(f"7Scenes PGO {name} (steps {T}, skip {config.skip}, "
+              f"{config.vo_lib} VOs): wall {wall:.2f} s, eval "
+              f"{res['images_per_sec']:.1f} images/s, upload_secs "
+              f"{res['upload_secs']}, frames_computed "
+              f"{res['frames_computed']}, dedup_slice {res['dedup_slice']}, "
+              f"pgo_secs {res['pgo_secs']} = {res['pgo_secs'] / wall} of "
+              f"the wall, median_t {res['median_t']} mean_t "
+              f"{res['mean_t']} median_q {res['median_q']}, launches "
+              f"{launches[name]}")
+        if res["pred_poses"].shape != (SEVEN_SCENES_FRAMES, 7):
+            raise AssertionError(f"{name}: pred_poses "
+                                 f"{res['pred_poses'].shape}")
+        if not (np.isfinite(res["pred_poses"]).all() and np.isfinite(
+                [res[k] for k in ("median_t", "mean_t", "median_q",
+                                  "mean_q")]).all()):
+            raise AssertionError(f"{name}: non-finite poses or errors")
+    i, j = runs["i_pgo_cache_f32"], runs["j_pgo_cache_int8_fused"]
+    if not i["dedup_slice"] or i["frames_computed"] != \
+            -(-SEVEN_SCENES_FRAMES // (B * T)) * B * T:
+        raise AssertionError(f"(i) ran {i['frames_computed']} frames, "
+                             f"slice {i['dedup_slice']}")
+    scale = float(np.abs(i["pred_poses"][:, :3]).max())
+    gap = abs(i["median_t"] - j["median_t"])
+    rel = float(np.abs(j["pred_poses"][:, :3] - i["pred_poses"][:, :3])
+                .max() / scale)
+    print(f"PGO'd translation medians: (i) float32 {i['median_t']}, (j) "
+          f"int8 {j['median_t']}; gap {gap} = {gap / scale} of the largest "
+          f"float32 translation; largest pose gap {rel} of it (bound "
+          f"{INT8_TOL})")
+    if not rel <= INT8_TOL:
+        raise AssertionError(f"(j) off (i) by {rel}")
+    windows = j["frames_computed"] // (B * T)
+    sites = 36
+    want = {"int8_conv": sites * (windows + CALIBRATE),
+            "int8_conv.body": (sites - 1) * (windows + CALIBRATE),
+            "int8_conv.s2d": windows, "int8_conv.simple": CALIBRATE,
+            "int8_maxpool3x3s2": windows}
+    if launches["j_pgo_cache_int8_fused"] != want:
+        raise AssertionError(f"(j) launches "
+                             f"{launches['j_pgo_cache_int8_fused']}, "
+                             f"expected {want}")
+    return launches["j_pgo_cache_int8_fused"]
+
+
+def check_eval_dropout(p4: dict, tmp: Path, config_file: Path) -> None:
+    """Phase 6 (d): ``--eval_dropout`` through the CLI on the tuple epoch;
+    same seed, same draws; another seed, other draws; the loader path, the
+    same draws as the tuple epoch."""
+    from geomapnet_tpu_torch.cli import eval as cli_eval
+    from geomapnet_tpu_torch.data.sevenscenes import SevenScenes
+
+    argv = p4["argv"] + ["--eval_dropout"]
+    tuple_epoch = ["--device_cache", "--no_frame_dedup"]
+    t0 = time.time()
+    full = cli_eval.main(argv + tuple_epoch)
+    det = p4["runs"]["c_cache_tuple_f32"]
+    diff = float(np.abs(full["pred_poses"] - det["pred_poses"]).max())
+    print(f"7Scenes --eval_dropout tuple epoch: wall {time.time() - t0:.2f} "
+          f"s, eval {full['images_per_sec']:.1f} images/s, frames_computed "
+          f"{full['frames_computed']}, dedup_slice {full['dedup_slice']}, "
+          f"median_t {full['median_t']}; max abs diff from the "
+          f"deterministic tuple epoch {diff}")
+    if full["dedup_slice"] or full["frames_computed"] != \
+            det["frames_computed"]:
+        raise AssertionError("--eval_dropout did not run the tuple epoch")
+    if not (np.isfinite(full["pred_poses"]).all() and diff > 0):
+        raise AssertionError("--eval_dropout: non-finite or no dropout")
+
+    small = write_7scenes_scene(tmp / "7scenes_small", SMALL_SCENE_FRAMES)
+    SevenScenes("heads", str(small / "deepslam" / "7Scenes"), train=True,
+                asset_dir=str(small / "assets" / "7Scenes"))
+    other_ini = tmp / "mapnet_seed8.ini"
+    other_ini.write_text(config_file.read_text().replace("seed = 7",
+                                                         "seed = 8"))
+    base = replace_args(argv, data_path=small / "deepslam",
+                        asset_root=small / "assets")
+    other = replace_args(base, config_file=other_ini)
+    runs = {name: cli_eval.main(a) for name, a in (
+        ("tuple", base + tuple_epoch), ("tuple_again", base + tuple_epoch),
+        ("tuple_seed8", other + tuple_epoch), ("loader", base))}
+    same = {k: np.array_equal(runs["tuple"]["pred_poses"],
+                              runs[k]["pred_poses"]) for k in runs}
+    print(f"--eval_dropout, {SMALL_SCENE_FRAMES}-frame scene: bit-identical "
+          f"to the tuple epoch {same}")
+    if not (same["tuple_again"] and same["loader"]) or same["tuple_seed8"]:
+        raise AssertionError(f"--eval_dropout draws: {same}")
+    for res in runs.values():
+        if not np.isfinite(res["pred_poses"]).all():
+            raise AssertionError("--eval_dropout: non-finite poses")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs only "
@@ -1040,6 +1333,15 @@ def main() -> int:
         int8 = check_int8_kernels(cuda_quant)
         print(f"int8 kernel checks: {time.time() - t0:.2f} s")
         int8_launches = check_int8_eval(p4, npz, config)
+
+        # phase 6: PGO and eval-time dropout
+        t0 = time.time()
+        pgo = check_pgo(card)
+        pgo_launches = check_pgo_eval(p4)
+        check_eval_dropout(p4, tmp, config_file)
+        print(f"phase 6: {time.time() - t0:.2f} s; PGO windows/s "
+              f"{ {k: v['windows_per_s'] for k, v in pgo.items()} } "
+              f"({card}); K1/K2 launches under PGO {pgo_launches}")
 
     f32 = kernel["float32"]
     # K4's bound: each mosaic byte read once, each float32 output written

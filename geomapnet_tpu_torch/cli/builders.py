@@ -2,9 +2,9 @@
 frame dataset.
 
 The PyTorch counterpart of the eval parts of :mod:`geomapnet_tpu.cli.builders`:
-7Scenes, the synthetic scene and RobotCar raw mosaics. RobotCar's processed
-RGB frames and VO/GPS poses are not ported yet and raise
-``NotImplementedError`` naming ROADMAP.md.
+7Scenes, the synthetic scene and RobotCar raw mosaics, each with its
+ground-truth or VO ("real") poses. RobotCar's processed RGB frames are not
+ported yet and raise ``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -43,7 +43,8 @@ def build_model(model_name: str, config: ExperimentConfig,
                       droprate=config.dropout, dtype=dtype)
     if model_name == "posenet":
         return posenet, False
-    if model_name == "mapnet":
+    if model_name in ("mapnet", "mapnet++"):
+        # MapNet++ differs from MapNet in training only
         return MapNet(posenet), True
     raise ValueError(f"unknown model {model_name!r}")
 
@@ -128,13 +129,19 @@ def build_frame_dataset(
     config: ExperimentConfig | None = None,
     transform=None,
     real: bool = False,
+    skip_images: bool = False,
     asset_root: str = "data",
+    vo_lib: str | None = None,
     raw_bayer: bool = False,
     cache_gb: float = 0.0,
 ):
     """Construct one frame dataset by name.
 
-    ``cache_gb`` wraps the on-disk datasets in a decoded-frame RAM cache
+    ``real`` loads the VO poses of ``vo_lib`` (7Scenes: ``config.vo_lib``
+    when None; RobotCar: "stereo" when None); ``skip_images`` builds a
+    pose-only dataset (the ground truth of a real PGO run), whose RobotCar
+    input type does not matter. ``cache_gb`` wraps the on-disk datasets in a
+    decoded-frame RAM cache
     (:class:`~geomapnet_tpu_torch.data.cache.CachedScene`): image decode is
     paid once per process. Skipped with a message when the transform
     jitters (caching would freeze one draw).
@@ -142,9 +149,9 @@ def build_frame_dataset(
     config = config or ExperimentConfig()
     built = _build_frame_dataset(
         dataset, scene, data_path, train, config, transform, real,
-        asset_root, raw_bayer,
+        skip_images, asset_root, vo_lib, raw_bayer,
     )
-    if cache_gb > 0 and dataset != "synth":
+    if cache_gb > 0 and dataset != "synth" and not skip_images:
         from ..data.cache import CachedScene
 
         try:
@@ -155,15 +162,15 @@ def build_frame_dataset(
 
 
 def _build_frame_dataset(
-    dataset, scene, data_path, train, config, transform, real, asset_root,
-    raw_bayer,
+    dataset, scene, data_path, train, config, transform, real, skip_images,
+    asset_root, vo_lib, raw_bayer,
 ):
     if dataset == "synth":
         from ..data.synthetic import SyntheticScene
 
         return SyntheticScene(
             n_frames=64, height=64, width=96, train=train, real=real,
-            seed=config.seed,
+            skip_images=skip_images, seed=config.seed,
         )
     if dataset == "7Scenes":
         from ..data.sevenscenes import SevenScenes
@@ -171,22 +178,19 @@ def _build_frame_dataset(
         return SevenScenes(
             scene=scene, data_path=data_path, train=train,
             transform=transform, seed=config.seed, real=real,
-            vo_lib=config.vo_lib,
+            skip_images=skip_images, vo_lib=vo_lib or config.vo_lib,
             asset_dir=str(Path(asset_root) / "7Scenes"),
         )
     if dataset == "RobotCar":
-        if not raw_bayer:
+        if not (raw_bayer or skip_images):
             raise NotImplementedError(
                 "RobotCar's processed-RGB frames are not ported yet "
                 "(ROADMAP.md, Queue 1); use the raw Bayer mosaics")
-        if real:
-            raise NotImplementedError(
-                "RobotCar VO/GPS poses (real=True) are not ported yet "
-                "(ROADMAP.md, Queue 1, item 13)")
         from ..data.robotcar import RobotCar
 
         return RobotCar(
             scene=scene, data_path=data_path, train=train,
-            asset_dir=str(Path(asset_root) / "RobotCar"),
+            asset_dir=str(Path(asset_root) / "RobotCar"), real=real,
+            skip_images=skip_images, vo_lib=vo_lib or "stereo",
         )
     raise ValueError(f"unknown dataset {dataset}")

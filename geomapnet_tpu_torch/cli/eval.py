@@ -35,9 +35,25 @@ float32 or (``--bf16``) bfloat16:
         --quantize_heads --fuse_requant --data_path <root> \\
         --asset_root <assets>
 
-Pose-graph optimization, eval-time dropout, the native decoder and the
-trajectory plot are not ported yet; their flags are refused with the
-ROADMAP.md item that ports them.
+- MapNet+PGO (``--pose_graph``): the tuples carry the VOs between their
+  frames (7Scenes: consecutive, RobotCar: all pairs), from the dataset's VO
+  poses when the config says ``real = yes`` (then the absolute targets come
+  from the ground truth); after the epoch every window's poses are fused
+  with its VOs by the batched Gauss-Newton of
+  :mod:`geomapnet_tpu_torch.pgo` on the device, in float32::
+
+    python -m geomapnet_tpu_torch.cli.eval --dataset 7Scenes --scene heads \
+        --model mapnet --config_file configs/pgo_inference_7Scenes.ini \
+        --weights w.npz --val --pose_graph --device_cache \
+        --data_path <root> --asset_root <assets>
+
+- Eval-time dropout (``--eval_dropout``, the reference's ungated
+  ``F.dropout``), drawn per batch from generators seeded by the config's
+  seed and the batch index: the loader path and the device-cache tuple
+  epoch give the same draws.
+
+The native decoder (``--native_loader``) and the trajectory plot are not
+ported yet; the flag is refused with the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -59,6 +75,7 @@ from ..data.device_cache import (
     upload_frames,
 )
 from ..data.loader import Loader
+from ..data.vo_np import vos_logq_fc_np, vos_logq_np
 from ..geometry.metrics import quaternion_angular_error, translation_error
 from ..geometry.rotations import qexp_np
 from ..models.flax_import import (
@@ -73,6 +90,7 @@ from ..models.quant import (
     fold_posenet_variables,
     quantize_posenet_variables,
 )
+from ..pgo import optimize_poses_batch
 from .builders import (
     TRUNKS,
     build_device_preprocess,
@@ -88,6 +106,7 @@ from .eval_epoch import (
     run_epoch,
     tuple_index_matrix,
     tuple_outputs,
+    window_generator,
 )
 
 __all__ = ["evaluate", "main"]
@@ -133,6 +152,18 @@ def evaluate(model: torch.nn.Module, dataset, device: torch.device,
     once when that saves forwards (MapNet), True always does (MapNet only),
     False keeps the tuple epoch.
 
+    ``pose_graph`` (an MF dataset with ``include_vos``): after the epoch's
+    readback every window's poses and VOs go through
+    :func:`geomapnet_tpu_torch.pgo.optimize_poses_batch` on ``device`` in
+    float32, before translations are un-normalized, with the
+    ``pgo_weights`` {sax, saq, srx, srq} and ``fc_vos`` (all-pairs VOs).
+    Its time is outside ``images_per_sec``, as in the JAX package, and is
+    returned as "pgo_secs" (host clock, results on the host).
+
+    ``stochastic`` keeps the PoseNet's dropout active; batch (window) ``k``
+    draws from ``window_generator(seed, k)``. The device cache then runs
+    the tuple epoch (dedup is refused), and the serving trunks are refused.
+
     Serving trunks (:mod:`geomapnet_tpu_torch.models.quant`), under the JAX
     package's argument names and checks: ``fold_bn`` runs the BN-folded
     float trunk in the model's dtype; ``quantize`` the int8 trunk in bf16,
@@ -173,8 +204,13 @@ def _evaluate(
     device: torch.device,
     batch_size: int = 64,
     pose_stats: tuple[np.ndarray, np.ndarray] | None = None,
+    pose_graph: bool = False,
+    fc_vos: bool = False,
+    pgo_weights: dict | None = None,
     progress: bool = True,
     preprocess=None,
+    stochastic: bool = False,
+    seed: int = 7,
     num_workers: int = 1,
     device_cache=False,
     dedup_frames: bool | None = None,
@@ -192,6 +228,12 @@ def _evaluate(
         raise ValueError(
             "dedup_frames=True requires device_cache (the dedup epoch runs "
             "over unique cached frame indices)")
+    if pose_graph and not (is_tuple and dataset.include_vos):
+        raise ValueError("pose_graph needs an MF dataset with include_vos "
+                         "(the VOs between each tuple's frames)")
+    if stochastic and (quantize or fold_bn):
+        raise ValueError(
+            "--quantize/--fold_bn are incompatible with --eval_dropout")
     if quantize and fold_bn:
         raise ValueError("--fold_bn is implied by --quantize; pick one")
     if fuse_requant and not (quantize and calib_batches):
@@ -201,7 +243,7 @@ def _evaluate(
     # dynamic-scale int8 quantizes each site at its batch's absmax, so a
     # frame's pose depends on its batchmates: no dedup epoch
     dynamic_q = quantize and not calib_batches
-    if dedup_frames and dynamic_q:
+    if dedup_frames and (dynamic_q or stochastic):
         raise ValueError(
             "dedup_frames needs a per-frame (MapNet-style) tuple model: "
             "no --eval_dropout (stochastic draws are per tuple slot) "
@@ -280,12 +322,13 @@ def _evaluate(
                 for p in frames_src.poses])
         t_start = time.time()
         plan = plan_epoch(idx_mat, batch_size,
-                          per_frame=is_tuple and not dynamic_q,
+                          per_frame=is_tuple and not (dynamic_q or stochastic),
                           dedup_frames=dedup_frames)
         if progress:
             print(f"eval: {plan.mode} epoch, {len(plan.windows)} windows of "
                   f"{plan.window_frames} frames from the device cache")
-        outs = run_epoch(plan, frame_buf, step, frame_shape)
+        outs = run_epoch(plan, frame_buf, step, frame_shape,
+                         dropout_seed=seed if stochastic else None)
         output = tuple_outputs(plan, outs.to("cpu", torch.float64).numpy())
         elapsed = time.time() - t_start
         result.update(device_frames=frame_buf, upload_secs=upload_secs,
@@ -305,7 +348,9 @@ def _evaluate(
                 if progress and batch_idx % 10 == 0:
                     print(f"Batch {batch_idx} / {len(loader)}")
                 x = torch.from_numpy(imgs.reshape(-1, *imgs.shape[2:]))
-                dev_outputs.append(step(x.to(device)))
+                gen = (window_generator(seed, batch_idx, device)
+                       if stochastic else None)
+                dev_outputs.append(step(x.to(device), gen))
                 host_targets.append(poses)
             output = torch.cat(dev_outputs).to("cpu", torch.float64).numpy()
         elapsed = time.time() - t_start
@@ -321,6 +366,20 @@ def _evaluate(
     targ7 = np.concatenate(
         [targ_abs[..., :3], qexp_np(targ_abs[..., 3:])], axis=-1
     )
+
+    if pose_graph:
+        # targets carry [steps abs | VOs]; every window in one batched
+        # solve on the device (JAX: cli/eval.py:676-691)
+        t_pgo = time.time()
+        vos_log = targ[:, steps:]
+        vos7 = np.concatenate(
+            [vos_log[..., :3], qexp_np(vos_log[..., 3:])], axis=-1)
+        out7 = optimize_poses_batch(
+            torch.from_numpy(out7).to(device, torch.float32),
+            torch.from_numpy(vos7).to(device, torch.float32),
+            fc=fc_vos, **(pgo_weights or {}),
+        ).to("cpu", torch.float64).numpy()
+        result["pgo_secs"] = time.time() - t_pgo
 
     # un-normalize translations
     out7[..., :3] = out7[..., :3] * pose_s + pose_m
@@ -403,8 +462,6 @@ def _pick_device(name: str | None) -> torch.device:
 # flags of the JAX CLI that the port refuses, and the ROADMAP.md item that
 # ports each
 _UNPORTED_FLAGS = {
-    "pose_graph": "Queue 1, item 11 (PGO)",
-    "eval_dropout": "Queue 1, item 12 (dropout masks, Queue 3)",
     "native_loader": "Queue 1, item 15 (native decoder)",
 }
 
@@ -419,7 +476,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--weights", type=str, required=True,
                         help="Flax variables as an .npz (save_npz format)")
     parser.add_argument("--model", required=True,
-                        choices=("posenet", "mapnet"))
+                        choices=("posenet", "mapnet", "mapnet++"))
     parser.add_argument("--trunk", default="resnet34",
                         choices=tuple(TRUNKS),
                         help="feature extractor (reference fixes resnet34)")
@@ -429,6 +486,10 @@ def main(argv=None) -> dict:
     parser.add_argument("--config_file", type=str, required=True)
     parser.add_argument("--val", action="store_true")
     parser.add_argument("--output_dir", type=str, default=None)
+    parser.add_argument(
+        "--pose_graph", action="store_true",
+        help="MapNet+PGO: fuse each window's poses with its VOs by a batched "
+        "Gauss-Newton on the device after the epoch")
     parser.add_argument("--batch_size", type=int, default=64)
     parser.add_argument("--data_path", type=str, default="data/deepslam_data")
     parser.add_argument("--asset_root", type=str, default="data")
@@ -441,6 +502,10 @@ def main(argv=None) -> dict:
         help="normalize images on the host (float32 transfer) instead of the "
         "default device-side normalize (uint8 transfer, 4x smaller)",
     )
+    parser.add_argument(
+        "--eval_dropout", action="store_true",
+        help="keep dropout active at eval (the reference's ungated F.dropout "
+        "quirk; its published numbers include it), seeded by the config")
     parser.add_argument(
         "--raw_bayer", action="store_true",
         help="RobotCar raw Bayer mosaics + on-device "
@@ -484,10 +549,9 @@ def main(argv=None) -> dict:
         "fused into each conv's epilogue; with --device_cache the scene is "
         "cached as prequantized space-to-depth int8 rows")
     # the JAX CLI's flags that are not ported yet: refused below
-    for flag in ("pose_graph", "eval_dropout", "native_loader"):
+    for flag, where in _UNPORTED_FLAGS.items():
         parser.add_argument(f"--{flag}", action="store_true",
-                            help=f"not ported yet (ROADMAP.md, "
-                            f"{_UNPORTED_FLAGS[flag]})")
+                            help=f"not ported yet (ROADMAP.md, {where})")
     args = parser.parse_args(argv)
     for flag, where in _UNPORTED_FLAGS.items():
         if getattr(args, flag):
@@ -508,8 +572,10 @@ def main(argv=None) -> dict:
     dtype = torch.bfloat16 if args.bf16 else torch.float32
 
     config = parse_ini(args.config_file)
-    use_tuples = args.model == "mapnet"
-    model, _ = build_model(args.model, config, trunk=args.trunk, dtype=dtype)
+    fc_vos = args.dataset == "RobotCar"
+    use_tuples = args.model.startswith("mapnet") or args.pose_graph
+    model, _ = build_model("mapnet" if use_tuples else "posenet", config,
+                           trunk=args.trunk, dtype=dtype)
     posenet = model.posenet if use_tuples else model
     posenet.load_state_dict(variables_to_state_dict(load_npz(args.weights)))
     model.to(device=device, memory_format=torch.channels_last)
@@ -538,14 +604,28 @@ def main(argv=None) -> dict:
     frames = build_frame_dataset(
         args.dataset, args.scene, data_path, train, config, transform=tf,
         real=config.real if use_tuples else False,
-        asset_root=args.asset_root, raw_bayer=args.raw_bayer,
-        cache_gb=args.cache_frames,
+        asset_root=args.asset_root,
+        vo_lib=config.vo_lib if args.pose_graph else None,
+        raw_bayer=args.raw_bayer, cache_gb=args.cache_frames,
     )
-    dataset = (
-        MF(frames, steps=config.steps, skip=config.skip,
-           variable_skip=config.variable_skip, seed=config.seed)
-        if use_tuples else frames
-    )
+    if use_tuples:
+        gt_frames = None
+        if args.pose_graph and config.real:
+            # VO poses in the frames: the absolute targets come from the
+            # ground truth (JAX: cli/eval.py:933-947)
+            gt_frames = build_frame_dataset(
+                args.dataset, args.scene, data_path, train, config,
+                skip_images=True, asset_root=args.asset_root)
+        dataset = MF(
+            frames, steps=config.steps, skip=config.skip,
+            variable_skip=config.variable_skip,
+            include_vos=args.pose_graph, real=config.real and args.pose_graph,
+            gt_dataset=gt_frames,
+            vo_func=vos_logq_fc_np if fc_vos else vos_logq_np,
+            seed=config.seed,
+        )
+    else:
+        dataset = frames
     if args.dataset == "synth":
         pose_stats = (np.zeros(3), np.ones(3))
     else:
@@ -553,9 +633,16 @@ def main(argv=None) -> dict:
             Path(args.asset_root) / args.dataset / args.scene
             / "pose_stats.txt"))
 
+    pgo_weights = dict(
+        sax=config.s_abs_trans, saq=config.s_abs_rot,
+        srx=config.s_rel_trans, srq=config.s_rel_rot,
+    ) if args.pose_graph else None
+
     results = evaluate(
         model, dataset, device, batch_size=args.batch_size,
-        pose_stats=pose_stats, preprocess=preprocess,
+        pose_stats=pose_stats, pose_graph=args.pose_graph, fc_vos=fc_vos,
+        pgo_weights=pgo_weights, preprocess=preprocess,
+        stochastic=args.eval_dropout, seed=config.seed,
         num_workers=config.num_workers,
         device_cache=args.device_cache,
         dedup_frames=False if args.no_frame_dedup else None,
@@ -579,11 +666,14 @@ def main(argv=None) -> dict:
         print(f"Device cache: upload {results['upload_secs']:.2f} s, "
               f"{results['frames_computed']} frames computed, "
               f"slice epoch {results['dedup_slice']}")
+    if args.pose_graph:
+        print(f"PGO: {results['pgo_secs']:.3f} s on {device}")
 
     if args.output_dir:
         out = Path(args.output_dir).expanduser()
         out.mkdir(parents=True, exist_ok=True)
-        name = f"{args.dataset}_{args.scene}_{args.model}"
+        model_name = args.model + ("_pgo" if args.pose_graph else "")
+        name = f"{args.dataset}_{args.scene}_{model_name}"
         with open(out / f"{name}.pkl", "wb") as f:
             pickle.dump({"targ_poses": results["targ_poses"],
                          "pred_poses": results["pred_poses"]}, f)

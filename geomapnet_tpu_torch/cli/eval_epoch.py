@@ -33,6 +33,13 @@ row per frame (:func:`geomapnet_tpu_torch.data.device_cache.quantize_rows`);
 its windows are the same ``narrow`` / ``index_select`` of rows, viewed as
 ``(B*T,) + frame_shape``.
 
+With eval-time dropout (``--eval_dropout``) the epoch is always the tuple
+epoch, whose window ``k`` is the loader path's batch ``k``: both draw the
+window's keep-mask from :func:`window_generator` of ``(seed, k)``, so the
+two paths give the same draws for a seed (the JAX package folds ``k`` into
+its eval key for both, cli/eval.py:399-403 and 651-653; the streams
+themselves differ from ``jax.random``).
+
 There is no cache of captured programs and no CUDA graph here: every epoch
 runs the modules it is given eagerly, so nothing can be reused across
 calls with stale batch sizes or frame shapes (the JAX package's compiled
@@ -48,7 +55,7 @@ import numpy as np
 import torch
 
 __all__ = ["EpochPlan", "plan_epoch", "make_step", "run_epoch",
-           "tuple_outputs", "tuple_index_matrix"]
+           "tuple_outputs", "tuple_index_matrix", "window_generator"]
 
 
 @dataclasses.dataclass
@@ -130,32 +137,50 @@ def plan_epoch(idx_mat: np.ndarray, batch_size: int, per_frame: bool,
                      idx_all.reshape(n_batches, nb_flat))
 
 
+def window_generator(seed: int, index: int,
+                     device: torch.device) -> torch.Generator:
+    """The dropout generator of window (or loader batch) ``index`` of an
+    eval seeded with ``seed``, on ``device``."""
+    return torch.Generator(device=device).manual_seed(
+        (seed * 1_000_003 + index) % 2 ** 63)
+
+
 def make_step(model: torch.nn.Module, preprocess: Callable | None,
-              steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``step(frames) -> poses``: (B*T, H, W, C) frames of B tuples through
-    ``preprocess`` and the per-frame PoseNet (MapNet's shared one, or a
-    :class:`~geomapnet_tpu_torch.models.quant.QuantizedPoseNet`) to
-    (B, T, 6) poses. int8 frames are the prequantized row cache's: they
-    skip ``preprocess``."""
+              steps: int) -> Callable[..., torch.Tensor]:
+    """``step(frames, generator=None) -> poses``: (B*T, H, W, C) frames of B
+    tuples through ``preprocess`` and the per-frame PoseNet (MapNet's shared
+    one, or a :class:`~geomapnet_tpu_torch.models.quant.QuantizedPoseNet`)
+    to (B, T, 6) poses; with a ``generator`` the PoseNet's dropout is
+    active. int8 frames are the prequantized row cache's: they skip
+    ``preprocess``."""
     posenet = getattr(model, "posenet", model)
 
-    def step(frames: torch.Tensor) -> torch.Tensor:
+    def step(frames: torch.Tensor,
+             generator: torch.Generator | None = None) -> torch.Tensor:
         if preprocess is not None and frames.dtype != torch.int8:
             frames = preprocess(frames)
-        return posenet(frames).reshape(-1, steps, 6)
+        out = posenet(frames) if generator is None else posenet(
+            frames, generator)
+        return out.reshape(-1, steps, 6)
 
     return step
 
 
 def run_epoch(plan: EpochPlan, frames: torch.Tensor,
-              step: Callable[[torch.Tensor], torch.Tensor],
-              frame_shape: tuple | None = None) -> torch.Tensor:
+              step: Callable[..., torch.Tensor],
+              frame_shape: tuple | None = None,
+              dropout_seed: int | None = None) -> torch.Tensor:
     """Run every window of ``plan`` over the device frame stack ``frames``;
     returns the (k, B, T, 6) poses on the device (no host sync).
 
     ``frame_shape``: ``frames`` is a 2-D row cache; each window's rows are
-    viewed as ``(B*T,) + frame_shape``.
+    viewed as ``(B*T,) + frame_shape``. ``dropout_seed``: window ``k`` runs
+    with dropout drawn from ``window_generator(dropout_seed, k)`` (tuple
+    epochs only).
     """
+    if dropout_seed is not None and plan.mode != "tuple":
+        raise ValueError("eval-time dropout runs the tuple epoch only")
+
     def view(rows: torch.Tensor) -> torch.Tensor:
         return rows if frame_shape is None else rows.view(
             (-1,) + tuple(frame_shape))
@@ -168,8 +193,10 @@ def run_epoch(plan: EpochPlan, frames: torch.Tensor,
                     frames.narrow(0, start, plan.window_frames))))
         else:
             idx = torch.from_numpy(plan.windows).to(frames.device)
-            for row in idx:
-                outs.append(step(view(frames.index_select(0, row))))
+            for k, row in enumerate(idx):
+                gen = None if dropout_seed is None else window_generator(
+                    dropout_seed, k, frames.device)
+                outs.append(step(view(frames.index_select(0, row)), gen))
     return torch.stack(outs)
 
 

@@ -1,24 +1,26 @@
-"""Oxford RobotCar scene of raw Bayer mosaics with ground-truth poses.
+"""Oxford RobotCar scene of raw Bayer mosaics.
 
-The raw-Bayer, ground-truth-pose part of
-:class:`geomapnet_tpu.data.robotcar.RobotCar`; it reads the same disk layout
-(upstream dataset_loaders/robotcar.py): a scene directory
-(``data_path/<scene>``) with ``train_split.txt`` / ``test_split.txt`` naming
-sequence dirs, each holding ``stereo.timestamps``, ``gps/ins.csv`` and
-``stereo/centre/<ts>.png`` mosaics; an assets dir with the scene's
-``pose_stats.txt``.
+The raw-Bayer part of :class:`geomapnet_tpu.data.robotcar.RobotCar`; it
+reads the same disk layout (upstream dataset_loaders/robotcar.py): a scene
+directory (``data_path/<scene>``) with ``train_split.txt`` /
+``test_split.txt`` naming sequence dirs, each holding ``stereo.timestamps``,
+``gps/ins.csv`` (ground truth), ``vo/vo.csv`` or ``gps/gps_ins.csv`` (the
+"real" poses) and ``stereo/centre/<ts>.png`` mosaics; an assets dir with the
+scene's ``pose_stats.txt`` and per-sequence ``<vo_lib>_vo_stats.pkl``
+alignments of the real poses into the ground-truth frame.
 
 Frames are the untouched single-channel GBRG mosaics, uint8 (H, W): the
 device pipeline (:func:`geomapnet_tpu_torch.ops.image.make_device_pipeline`)
-demosaics, resizes and normalizes them. Poses are normalized by the *real*
-translation mean/std, written when the train split is built and read back
-otherwise (upstream robotcar.py:89-99). The VO/GPS ("real") poses, host
+demosaics, resizes and normalizes them. Poses are normalized by the
+ground-truth translation mean/std, written when the ground-truth train
+split is built and read back otherwise (upstream robotcar.py:89-99). Host
 demosaic/undistort and the native batch decoder are not ported yet.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -26,7 +28,7 @@ from pathlib import Path
 import numpy as np
 
 from ..geometry.process import process_poses
-from .robotcar_sdk import interpolate_ins_poses
+from .robotcar_sdk import interpolate_ins_poses, interpolate_vo_poses
 
 __all__ = ["RobotCar"]
 
@@ -36,15 +38,33 @@ def _read_timestamps(seq_dir: Path) -> list[int]:
         return [int(line.rstrip().split(" ")[0]) for line in f]
 
 
-def _load_sequence(seq_dir: Path) -> tuple[np.ndarray, list[Path]]:
-    """(F, 12) flattened INS ``[R|t]`` rows at the image timestamps, and the
-    image paths, for one sequence."""
+def _load_sequence(seq_dir: Path, asset_seq_dir: Path, real: bool,
+                   vo_lib: str) -> tuple[np.ndarray, dict, list[Path]]:
+    """(F, 12) flattened ``[R|t]`` rows at the image timestamps, their
+    similarity alignment {R, t, s} into the ground-truth frame, and the image
+    paths, for one sequence: INS ground truth, or with ``real`` the
+    integrated stereo VO (``vo_lib`` "stereo") or GPS ("gps") with its
+    pickled alignment."""
     stamps = _read_timestamps(seq_dir)
-    se3 = np.asarray(interpolate_ins_poses(seq_dir / "gps" / "ins.csv",
-                                           stamps, stamps[0]))
+    if real:
+        if vo_lib == "stereo":
+            se3 = interpolate_vo_poses(seq_dir / "vo" / "vo.csv", stamps,
+                                       stamps[0])
+        elif vo_lib == "gps":
+            se3 = interpolate_ins_poses(seq_dir / "gps" / "gps_ins.csv",
+                                        stamps, stamps[0])
+        else:
+            raise NotImplementedError(f"unknown vo_lib {vo_lib}")
+        with open(asset_seq_dir / f"{vo_lib}_vo_stats.pkl", "rb") as f:
+            alignment = pickle.load(f)
+    else:
+        se3 = interpolate_ins_poses(seq_dir / "gps" / "ins.csv", stamps,
+                                    stamps[0])
+        alignment = {"R": np.eye(3), "t": np.zeros(3), "s": 1}
+    se3 = np.asarray(se3)
     raw = se3[:, :3, :].reshape(len(se3), -1)
     paths = [seq_dir / "stereo" / "centre" / f"{t}.png" for t in stamps]
-    return raw, paths
+    return raw, alignment, paths
 
 
 def _real_pose_stats(stats_file: Path, write_from: np.ndarray | None):
@@ -82,11 +102,14 @@ class RobotCar:
 
     :param scene: sequence collection name
     :param data_path: raw dataset root (contains ``<scene>/<seq dirs>``)
-    :param train: train vs test split; the train split writes
-        ``pose_stats.txt``, the test split reads it
+    :param train: train vs test split; the ground-truth train split writes
+        ``pose_stats.txt``, every other split reads it
     :param asset_dir: processed-assets root (defaults to ``data/RobotCar``)
     :param raw_size: expected (H, W) of the mosaics (RobotCar Grasshopper2:
         960x1280); a frame of another shape counts as corrupt
+    :param real: poses from VO/GPS integration instead of INS ground truth
+    :param skip_images: pose-only dataset (images None)
+    :param vo_lib: 'stereo' (vo.csv) or 'gps' (gps_ins.csv) for real=True
     """
 
     def __init__(
@@ -96,8 +119,12 @@ class RobotCar:
         train: bool,
         asset_dir: str | None = None,
         raw_size: tuple[int, int] = (960, 1280),
+        real: bool = False,
+        skip_images: bool = False,
+        vo_lib: str = "stereo",
     ):
         self.raw_size = tuple(raw_size)
+        self.skip_images = skip_images
         scene_dir = Path(os.path.expanduser(data_path)) / scene
         asset_scene_dir = Path(asset_dir or Path("data") / "RobotCar") / scene
 
@@ -105,24 +132,29 @@ class RobotCar:
         with open(scene_dir / split_name) as f:
             seq_names = [l.rstrip() for l in f if not l.startswith("#")]
 
-        sequences = [_load_sequence(scene_dir / seq) for seq in seq_names]
-        self.imgs = [p for _, paths in sequences for p in paths]
+        sequences = [_load_sequence(scene_dir / seq, asset_scene_dir / seq,
+                                    real, vo_lib)
+                     for seq in seq_names]
+        self.imgs = [p for _, _, paths in sequences for p in paths]
 
-        all_raw = np.vstack([raw for raw, _ in sequences])
+        all_raw = np.vstack([raw for raw, _, _ in sequences])
         mean_t, std_t = _real_pose_stats(
             asset_scene_dir / "pose_stats.txt",
-            write_from=all_raw if train else None,
+            write_from=all_raw if (train and not real) else None,
         )
-        identity = np.eye(3), np.zeros(3), 1
         self.poses = np.concatenate([
-            process_poses(raw, mean_t, std_t, *identity)
-            for raw, _ in sequences
+            process_poses(raw, mean_t, std_t, align["R"], align["t"],
+                          align["s"])
+            for raw, align, _ in sequences
         ]).astype(np.float32)
         self.gt_idx = np.arange(len(self.poses))
 
     def get_image(self, index: int) -> np.ndarray | None:
         """The (H, W) uint8 mosaic, or None when it cannot be read or has
-        another shape than ``raw_size``."""
+        another shape than ``raw_size`` (always None with
+        ``skip_images``)."""
+        if self.skip_images:
+            return None
         from PIL import Image
 
         try:
@@ -138,6 +170,8 @@ class RobotCar:
         """:meth:`get_image` for many frames; PNG decodes release the GIL,
         so ``num_workers`` threads decode in parallel."""
         indices = [int(i) for i in indices]
+        if self.skip_images:
+            return [None] * len(indices)
         if num_workers <= 1 or len(indices) <= 1:
             return [self.get_image(i) for i in indices]
         with ThreadPoolExecutor(num_workers) as pool:

@@ -1,11 +1,14 @@
-"""Oxford RobotCar INS pose interpolation (host-side numpy).
+"""Oxford RobotCar INS and VO pose interpolation (host-side numpy).
 
-The ground-truth part of :mod:`geomapnet_tpu.data.robotcar_sdk`, copied so
-the port needs no jax (tests/test_torch_import_isolation.py pins it to the
-original). ``gps/ins.csv`` holds absolute INS solutions in the UTM frame
-(timestamp, northing, easting, down, roll, pitch, yaw). SE(3) poses are
-sampled at the image timestamps by SLERP (rotation) + linear (translation)
-between the bracketing measurements, expressed relative to the pose at
+The pose part of :mod:`geomapnet_tpu.data.robotcar_sdk`, copied so the port
+needs no jax (tests/test_torch_import_isolation.py pins it to the
+original). ``gps/ins.csv`` (and ``gps/gps_ins.csv``) hold absolute INS
+solutions in the UTM frame (timestamp, northing, easting, down, roll,
+pitch, yaw); ``vo/vo.csv`` holds the relative motion between consecutive
+stereo frames (source_timestamp, destination_timestamp, x, y, z, roll,
+pitch, yaw), integrated into a trajectory first. SE(3) poses are sampled at
+the image timestamps by SLERP (rotation) + linear (translation) between the
+bracketing measurements, expressed relative to the pose at
 ``origin_timestamp``, as the robotcar-dataset-sdk does. The euler convention
 is R = Rz(yaw) @ Ry(pitch) @ Rx(roll).
 """
@@ -19,7 +22,7 @@ import numpy as np
 
 from ..geometry.rotations import euler2mat, mat2quat_batch, quat2mat
 
-__all__ = ["interpolate_ins_poses"]
+__all__ = ["interpolate_ins_poses", "interpolate_vo_poses"]
 
 
 def _se3(xyz: np.ndarray, rpy: np.ndarray) -> np.ndarray:
@@ -108,3 +111,35 @@ def interpolate_ins_poses(
     out = _interpolate_se3(ts[order], poses,
                            np.asarray(pose_timestamps), origin_timestamp)
     return list(out)
+
+
+def interpolate_vo_poses(
+    vo_path: str | Path,
+    pose_timestamps: list[int],
+    origin_timestamp: int,
+) -> list[np.ndarray]:
+    """Integrated relative VO sampled at image timestamps (SDK-compatible).
+
+    Each vo.csv row carries the relative motion of the ``source_timestamp``
+    frame (the later one); chaining rows in file order integrates the
+    trajectory. As in the SDK, the integrated poses are keyed by source
+    timestamp, with an identity pose at a leading dummy timestamp 0.
+    """
+    ts = [0]
+    abs_poses = [np.eye(4)]
+    with open(vo_path) as f:
+        reader = csv.DictReader(f)
+        for row in reader:
+            rel = _se3(
+                np.asarray([[float(row[k]) for k in ("x", "y", "z")]]),
+                np.asarray([[float(row[k]) for k in ("roll", "pitch",
+                                                     "yaw")]]),
+            )[0]
+            ts.append(int(row["source_timestamp"]))
+            abs_poses.append(abs_poses[-1] @ rel)
+    ts = np.asarray(ts)
+    poses = np.stack(abs_poses)
+    return list(
+        _interpolate_se3(ts, poses, np.asarray(pose_timestamps),
+                         origin_timestamp)
+    )

@@ -12,6 +12,14 @@ The PyTorch counterpart of :mod:`geomapnet_tpu.models.posenet`
 does: input, kernel and bias cast to ``dtype``, and the concatenated pose
 cast to float32. The NaN-gradient guard of MapNet++ training is not ported
 yet.
+
+Dropout is off unless the caller asks for it: ``forward(x, generator=g)``
+keeps it active at inference (BatchNorm still in inference mode), as the
+reference's ungated ``F.dropout`` does (upstream models/posenet.py:68-69,
+``stochastic=True`` in the JAX package), drawing the keep-mask from the
+explicit ``torch.Generator`` ``g``; ``keep_mask=`` injects an (N, feat_dim)
+mask instead. Flax's placement and scaling: ``fc_feat -> relu -> dropout``,
+kept features divided by ``1 - droprate``.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ from torch import nn
 
 from .resnet import ResNet, resnet34
 
-__all__ = ["PoseNet", "MapNet", "Linear"]
+__all__ = ["PoseNet", "MapNet", "Linear", "dropout_keep_mask"]
 
 
 class Linear(nn.Linear):
@@ -45,8 +53,8 @@ class PoseNet(nn.Module):
 
     :param feature_extractor: trunk mapping (N, H, W, 3) -> (N, F); a
         ResNet-34 when None
-    :param droprate: dropout probability after the feature fc (identity in
-        ``eval()`` mode)
+    :param droprate: dropout probability after the feature fc (applied only
+        when ``forward`` gets a generator or a keep-mask)
     :param feat_dim: width of the feature fc (reference: 2048)
     :param dtype: compute dtype of the heads
     """
@@ -58,16 +66,43 @@ class PoseNet(nn.Module):
         self.feature_extractor = feature_extractor or resnet34(dtype)
         self.fc_feat = Linear(self.feature_extractor.out_features, feat_dim,
                               dtype)
-        self.dropout = nn.Dropout(droprate)
+        self.droprate = droprate
         self.fc_xyz = Linear(feat_dim, 3, dtype)
         self.fc_wpqr = Linear(feat_dim, 3, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) -> (N, 6) ``[xyz, log-q]`` poses, float32."""
-        feats = torch.relu(self.fc_feat(self.feature_extractor(x)))
-        feats = self.dropout(feats)
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None,
+                keep_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """(N, H, W, 3) -> (N, 6) ``[xyz, log-q]`` poses, float32.
+
+        With ``generator`` (on ``x``'s device) or an (N, feat_dim) boolean
+        ``keep_mask`` the dropout after ``fc_feat`` is active."""
+        return self.head(self.feature_extractor(x), generator, keep_mask)
+
+    def head(self, feats: torch.Tensor,
+             generator: torch.Generator | None = None,
+             keep_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """Trunk features (N, F) -> (N, 6) poses: ``fc_feat -> relu ->
+        [dropout] -> fc_xyz / fc_wpqr``."""
+        feats = torch.relu(self.fc_feat(feats))
+        if keep_mask is None and generator is not None and self.droprate > 0:
+            keep_mask = dropout_keep_mask(feats.shape, self.droprate,
+                                          generator, feats.device)
+        if keep_mask is not None:
+            keep = 1.0 - self.droprate
+            feats = torch.where(keep_mask, feats / keep,
+                                torch.zeros((), dtype=feats.dtype,
+                                            device=feats.device))
         return torch.cat([self.fc_xyz(feats), self.fc_wpqr(feats)],
                          dim=-1).float()
+
+
+def dropout_keep_mask(shape, droprate: float, generator: torch.Generator,
+                      device: torch.device) -> torch.Tensor:
+    """A boolean keep-mask of ``shape``: each entry kept with probability
+    ``1 - droprate``, drawn from ``generator`` (which lives on ``device``)."""
+    return torch.rand(shape, generator=generator, device=device) \
+        < 1.0 - droprate
 
 
 class MapNet(nn.Module):

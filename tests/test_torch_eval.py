@@ -213,6 +213,9 @@ def test_cli_refuses_silent_cpu(tmp_path, monkeypatch):
 
 
 def test_unported_datasets_raise(tmp_path):
+    """The native decoder and RobotCar's processed RGB frames are refused
+    naming ROADMAP.md, also for VO ("real") poses; a pose-only RobotCar
+    dataset (the ground truth of a PGO run) needs no input type."""
     from geomapnet_tpu_torch.data.sevenscenes import SevenScenes
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -222,4 +225,9 @@ def test_unported_datasets_raise(tmp_path):
                                      raw_bayer=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         builders.build_frame_dataset("RobotCar", "loop", "x", True,
-                                     real=True, raw_bayer=True)
+                                     real=True, raw_bayer=False)
+    raw, assets = write_bayer_scene(tmp_path, n=3, h=8, w=12)
+    gt = builders.build_frame_dataset("RobotCar", "loop", str(raw), True,
+                                      skip_images=True,
+                                      asset_root=str(assets))
+    assert len(gt) == 3 and gt.get_image(0) is None

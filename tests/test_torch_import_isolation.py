@@ -24,6 +24,9 @@ from geomapnet_tpu.data.robotcar import RobotCar as JaxRobotCar
 from geomapnet_tpu.data.robotcar_sdk import (
     interpolate_ins_poses as jax_interpolate_ins,
 )
+from geomapnet_tpu.data.robotcar_sdk import (
+    interpolate_vo_poses as jax_interpolate_vo,
+)
 from geomapnet_tpu.data import transforms as jax_transforms
 from geomapnet_tpu.data.cache import CachedScene as JaxCachedScene
 from geomapnet_tpu.data.synthetic import SyntheticScene as JaxSyntheticScene
@@ -39,13 +42,17 @@ from geomapnet_tpu_torch.data.cache import CachedScene
 from geomapnet_tpu_torch.data.composite import MF
 from geomapnet_tpu_torch.data.loader import Loader
 from geomapnet_tpu_torch.data.robotcar import RobotCar
-from geomapnet_tpu_torch.data.robotcar_sdk import interpolate_ins_poses
+from geomapnet_tpu_torch.data.robotcar_sdk import (
+    interpolate_ins_poses,
+    interpolate_vo_poses,
+)
 from geomapnet_tpu_torch.data.synthetic import SyntheticScene
 from geomapnet_tpu_torch.data.transforms import Normalize, std_from_stats
 from geomapnet_tpu_torch.data.tuples import TupleSampler
 from geomapnet_tpu_torch.geometry import metrics, process
 from geomapnet_tpu_torch.geometry import rotations as rot
-from test_torch_eval import write_bayer_scene
+from test_torch_eval import SEQ, write_bayer_scene
+from test_torch_eval_pgo import write_stereo_vo
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = Path(geomapnet_tpu_torch.__file__).parent
@@ -76,6 +83,15 @@ def test_every_module_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_new_modules_are_covered():
+    """The torch geometry and PGO modules are among those imported with the
+    JAX stack blocked (above) and scanned for imports (below)."""
+    mods = set(_port_modules())
+    for m in ("geometry.quaternion", "geometry.se3", "geometry.vo", "pgo",
+              "pgo.pose_graph"):
+        assert f"geomapnet_tpu_torch.{m}" in mods, m
 
 
 def test_no_module_names_jax():
@@ -337,6 +353,43 @@ def test_ins_interpolation_and_robotcar_poses(tmp_path):
         np.testing.assert_array_equal(ours.poses, theirs.poses)
         np.testing.assert_array_equal(ours.get_image(3), theirs.get_image(3))
         assert [str(p) for p in ours.imgs] == [str(p) for p in theirs.imgs]
+
+
+@pytest.mark.parametrize("vo_lib", ["stereo", "gps"])
+def test_vo_interpolation_and_real_robotcar_poses(tmp_path, vo_lib):
+    """``interpolate_vo_poses`` equals JAX's, and so do RobotCar's "real"
+    poses (integrated stereo VO, or GPS, aligned by the sequence's pickle)
+    and a pose-only dataset's poses."""
+    import pickle
+
+    raw, assets = write_bayer_scene(tmp_path, n=9, h=8, w=12)
+    write_stereo_vo(raw, assets, n=9)
+    seq = raw / "loop" / SEQ
+    vo = seq / "vo" / "vo.csv"
+    stamps = [1000, 1500, 2600, 7000, 9000]
+    np.testing.assert_array_equal(
+        np.asarray(interpolate_vo_poses(vo, stamps, 1200)),
+        np.asarray(jax_interpolate_vo(vo, stamps, 1200)))
+    # GPS: every other INS row, in the same schema
+    ins = (seq / "gps" / "ins.csv").read_text().splitlines()
+    (seq / "gps" / "gps_ins.csv").write_text("\n".join(ins[:1]
+                                                        + ins[1::2]))
+    with open(assets / "RobotCar" / "loop" / SEQ / "gps_vo_stats.pkl",
+              "wb") as f:
+        pickle.dump({"R": jax_rot.euler2mat(0.1, 0, 0.3),
+                     "t": np.array([1.0, 2, 3]), "s": 1.2}, f)
+    rc = str(assets / "RobotCar")
+    RobotCar("loop", str(raw), train=True, asset_dir=rc, raw_size=(8, 12))
+    for kw in (dict(real=True, vo_lib=vo_lib), dict(skip_images=True)):
+        ours = RobotCar("loop", str(raw), train=False, asset_dir=rc,
+                        raw_size=(8, 12), **kw)
+        theirs = JaxRobotCar("loop", str(raw), train=False, asset_dir=rc,
+                             raw_bayer=True, raw_size=(8, 12), **kw)
+        np.testing.assert_array_equal(ours.poses, theirs.poses)
+        np.testing.assert_array_equal(ours.gt_idx, theirs.gt_idx)
+        if "skip_images" in kw:
+            assert ours.get_image(0) is None is theirs.get_image(0)
+            assert ours.get_images([0, 1]) == [None, None]
 
 
 def test_robotcar_wrong_size_frame_is_corrupt(tmp_path):
