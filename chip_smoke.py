@@ -82,6 +82,29 @@ prints no result line):
    whose tuple epoch must give bit-identical poses on a rerun with the same
    seed, other poses with another seed, and bit-identical poses on the
    loader path.
+7. Training: (a) one train step of MapNet (ResNet-34, feat_dim 2048, Adam
+   of configs/mapnet.ini, an injected dropout mask) on 2 tuples x 3 frames
+   at 64x96, on the card and on the CPU from the same weights and batch:
+   the loss within ``TRAIN_TOL`` relative, the criterion's and the heads'
+   gradients within ``TRAIN_TOL`` of each tensor's max-abs, every BatchNorm
+   running statistic within ``TRAIN_TOL`` of its tensor's max-abs. (b) the
+   full-width step (20 tuples x 3 frames at 256x341 uint8, normalized on
+   the card) in float32 and bf16: CUDA-event time per step, train
+   images/s, the host's time to queue a step, the peak of
+   ``max_memory_allocated`` and the top device operations of a
+   ``torch.profiler`` trace of 5 steps; the loss must fall over 10 steps on
+   the fixed batch. (c) ``cli.train.main()`` (default device: the card) on
+   a generated 7Scenes scene (200 train, 60 test frames; configs/
+   mapnet.ini with 2 epochs, validation and a snapshot every epoch, and its
+   host colour jitter) with ``--profile_dir``: ``epoch_000``-``epoch_002``
+   written, every logged loss finite; the wall time, train images/s, the
+   loop's wait on the loader (host decode, resize and jitter), and the
+   card's busy share of the profiled first epoch; ``--auto_resume``
+   restarts at epoch 2 with the weights restored bit for bit;
+   ``cli.eval.main --weights`` on the final checkpoint gives finite errors.
+   (d) ``cli.train.main --raw_bayer`` on phase 3's RobotCar scene for one
+   epoch: the demosaic kernel's launches must equal the train steps plus
+   the validation batches.
 
 The line before the last is a JSON object with every kernel's launches on
 its main path, error, times and bound; the last line is
@@ -134,6 +157,11 @@ PGO_TOL = 1e-4
 GOLDEN_TOL = 2e-3         # tests/test_golden_parity.py::TestPGO
 PGO_CONFIG = "configs/pgo_inference_7Scenes.ini"
 SMALL_SCENE_FRAMES = 60
+# one float32 train step on the card against the CPU: the forward and
+# backward of a ResNet-34 summed in another order
+TRAIN_TOL = 1e-4
+TRAIN_FRAMES = 200        # train split of the training scene
+TRAIN_VAL_FRAMES = 60
 
 
 def card_line() -> str:
@@ -229,28 +257,39 @@ def check_k1_build(nvcc, cq) -> None:
 
 
 def profile_window(step, window, reps: int = 5) -> float | None:
-    """Device time of ``reps`` windows by kernel (``torch.profiler``, self
-    device time), the kernels launched per window and the card's busy share
-    of their wall time; the profiler slows the host, so the idle share is
-    an upper bound. Returns the device's busy ms per window (None when the
-    profiler saw none)."""
+    """:func:`profile_calls` of ``step(window)`` in inference mode."""
+    with torch.inference_mode():
+        return profile_calls(lambda: step(window), reps, "window")
+
+
+def profile_calls(fn, reps: int = 5, what: str = "call") -> float | None:
+    """Device time of ``reps`` calls of ``fn`` by kernel (``torch.profiler``,
+    the card's kernels, copies and sets), the device operations per call
+    and the card's busy share of their wall time; the profiler slows the
+    host, so the idle share is an upper bound. Returns the device's busy ms
+    per call (None when the profiler saw none)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        step(window)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                step(window)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
+    from torch.autograd import DeviceType
+
+    # the card's own events only (kernels, copies, sets): an operator's
+    # row carries the time of the kernels it launched and an annotation's
+    # the time it spans, so counting them too counts those kernels twice
     rows = []
     for e in prof.key_averages():
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == DeviceType.CPU or getattr(
+                e, "is_user_annotation", False):
+            continue
+        dev = e.self_device_time_total
         if dev > 0:
             rows.append((dev, e.key, e.count))
     busy = sum(r[0] for r in rows)
@@ -258,13 +297,13 @@ def profile_window(step, window, reps: int = 5) -> float | None:
         print("profile: no device time recorded (not measured)")
         return None
     kernels = sum(r[2] for r in rows) / reps
-    print(f"profile, {reps} windows: device busy {busy / reps / 1e3} ms of "
-          f"{wall_us / reps / 1e3} ms wall per window ({busy / wall_us} "
+    print(f"profile, {reps} {what}s: device busy {busy / reps / 1e3} ms of "
+          f"{wall_us / reps / 1e3} ms wall per {what} ({busy / wall_us} "
           f"busy under the profiler), {kernels} device operations per "
-          f"window")
+          f"{what}")
     for dev, key, count in sorted(rows, reverse=True)[:8]:
         print(f"  {dev / busy:.4f} of device time, {dev / reps / 1e3} ms "
-              f"per window, {count // reps} per window: {key[:90]}")
+              f"per {what}, {count // reps} per {what}: {key[:90]}")
     return busy / reps / 1e3
 
 
@@ -629,7 +668,7 @@ def write_7scenes_scene(root: Path, n_test: int, n_train: int = 4) -> Path:
 
     scene = root / "deepslam" / "7Scenes" / "heads"
     rng = np.random.RandomState(SEED)
-    width = 640 + n_test
+    width = 640 + max(n_test, n_train)
     pano = np.asarray(Image.fromarray(
         rng.randint(0, 256, (24, width // 20 + 1, 3), dtype=np.uint8)
     ).resize((width, 480), Image.BILINEAR), np.float32)
@@ -1203,6 +1242,253 @@ def check_eval_dropout(p4: dict, tmp: Path, config_file: Path) -> None:
             raise AssertionError("--eval_dropout: non-finite poses")
 
 
+def train_setup(config, dtype=torch.float32, device="cpu", state=None,
+                preprocess=None):
+    """A MapNet (ResNet-34, feat_dim 2048) with its criterion (beta and
+    gamma learned), optimizer and train step (through ``preprocess``) on
+    ``device``; the weights from ``state`` when given, else from torch's
+    seeded default generator."""
+    from geomapnet_tpu_torch.cli import builders
+    from geomapnet_tpu_torch.train.optim import make_optimizer
+    from geomapnet_tpu_torch.train.state import make_train_step
+
+    torch.manual_seed(SEED)
+    model, _ = builders.build_model("mapnet", config, trunk="resnet34",
+                                    dtype=dtype)
+    if state is not None:
+        model.load_state_dict(state)
+    model.to(device=device, memory_format=torch.channels_last)
+    crit, _ = builders.build_criteria("mapnet", config, True, True)
+    crit.to(device)
+    opt = make_optimizer(config.opt, config.lr, model, crit,
+                         config.weight_decay, **config.optim_extras)
+    return model, crit, make_train_step(model, crit, opt, preprocess)
+
+
+def check_train_card_vs_cpu(config) -> None:
+    """Phase 7 (a): one train step on the card against the CPU from the same
+    weights, batch and dropout mask."""
+    rng = np.random.RandomState(SEED + 7)
+    x = torch.from_numpy(rng.randn(2, 3, 64, 96, 3).astype(np.float32))
+    y = torch.from_numpy((rng.randn(2, 3, 6) * 0.1).astype(np.float32))
+    mask = torch.from_numpy(rng.rand(6, 2048) >= config.dropout)
+    out = {}
+    state = None
+    for dev in ("cpu", "cuda"):
+        model, crit, step = train_setup(config, device=dev, state=state)
+        state = state or {k: v.clone() for k, v in model.state_dict().items()}
+        loss = step(x.to(dev), y.to(dev), keep_masks=[mask.to(dev)])
+        pn = model.posenet
+        grads = {f"crit.{k}": p.grad for k, p in crit.named_parameters()}
+        grads.update({f"{m}.{k}": p.grad
+                      for m in ("fc_feat", "fc_xyz", "fc_wpqr")
+                      for k, p in getattr(pn, m).named_parameters()})
+        stats = {k: v for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        out[dev] = (float(loss), {k: v.detach().cpu().double() for k, v in
+                                  {**grads, **stats}.items()})
+    (l_cpu, t_cpu), (l_gpu, t_gpu) = out["cpu"], out["cuda"]
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    worst = max((float((t_gpu[k] - v).abs().max()
+                       / max(float(v.abs().max()), 1e-30)), k)
+                for k, v in t_cpu.items())
+    print(f"train step, card vs CPU (MapNet ResNet-34, 2x3x64x96, injected "
+          f"dropout): loss {l_gpu} vs {l_cpu}, rel {rel}; largest gradient/"
+          f"BN-statistic gap {worst[0]} of its tensor's max-abs ({worst[1]}; "
+          f"{len(t_cpu)} tensors; bound {TRAIN_TOL})")
+    if not (rel <= TRAIN_TOL and worst[0] <= TRAIN_TOL):
+        raise AssertionError("the train step on the card differs from the "
+                             "CPU's")
+
+
+def time_train_step(config, card: str) -> dict:
+    """Phase 7 (b): the full-width step in float32 and bf16."""
+    from geomapnet_tpu_torch.ops.image import normalize
+
+    B, T = config.batch_size, config.steps
+    rng = np.random.RandomState(SEED + 8)
+    raw = torch.from_numpy(rng.randint(0, 256, (B, T, 256, 341, 3),
+                                       dtype=np.uint8)).cuda()
+    y = torch.from_numpy((rng.randn(B, T, 6) * 0.1).astype(np.float32)
+                         ).cuda()
+    mean, std = (0.45, 0.45, 0.46), (0.28, 0.28, 0.27)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        model, crit, step = train_setup(
+            config, dtype, "cuda", preprocess=lambda im, dt=dtype: normalize(
+                im, mean, std, dtype=dt))
+        losses = [float(step(raw, y)) for _ in range(10)]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{name} train loss did not fall: {losses}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(raw, y), reps=5, groups=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        queue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(raw, y)
+            queue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        queue_ms = float(np.median(queue))
+        print(f"train step {name} ({card}), {B}x{T} frames 256x341: {ms} ms "
+              f"(CUDA events) = {B * T / ms * 1e3:.1f} train images/s; host "
+              f"queues a step in {queue_ms} ms; peak memory {peak:.3f} GiB; "
+              f"loss over 10 steps {losses[0]:.4f} -> {losses[-1]:.4f}")
+        busy = profile_calls(lambda: step(raw, y), 5, "step")
+        out[name] = dict(ms=ms, images_per_s=B * T / ms * 1e3,
+                         queue_ms=queue_ms, peak_gib=peak, busy_ms=busy)
+        del model, crit, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def write_train_ini(tmp: Path, config_file: Path, n_epochs: int,
+                    name: str) -> Path:
+    """``config_file`` with ``n_epochs``, validation and a snapshot every
+    epoch and a print line every 5 batches."""
+    text = config_file.read_text()
+    for key, value in (("n_epochs", n_epochs), ("val_freq", 1),
+                       ("snapshot", 1), ("print_freq", 5)):
+        text = "\n".join(f"{key} = {value}" if ln.startswith(f"{key} =")
+                         else ln for ln in text.split("\n"))
+    path = tmp / f"{name}.ini"
+    path.write_text(text)
+    return path
+
+
+def trace_busy_share(trace: Path) -> tuple[float, float]:
+    """(device busy ms, its share of the trace's span) from a
+    ``torch.profiler`` Chrome trace: the kernels, copies and sets of the
+    card, over the span from the first to the last event."""
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"]
+                                                         for e in events)
+    busy = sum(e["dur"] for e in dev)
+    return busy / 1e3, busy / span
+
+
+def check_train_cli_7scenes(tmp: Path, config_file: Path) -> None:
+    """Phase 7 (c): the train CLI on a generated 7Scenes scene, resume, and
+    the eval CLI on its checkpoint."""
+    import os
+
+    from geomapnet_tpu_torch.cli import eval as cli_eval
+    from geomapnet_tpu_torch.cli import train as cli_train
+
+    t0 = time.time()
+    root = write_7scenes_scene(tmp / "7scenes_train", TRAIN_VAL_FRAMES,
+                               n_train=TRAIN_FRAMES)
+    ini = write_train_ini(tmp, config_file, 2, "mapnet_2ep")
+    print(f"7Scenes training scene: {TRAIN_FRAMES} train / "
+          f"{TRAIN_VAL_FRAMES} test frames in {time.time() - t0:.2f} s")
+    argv = ["--dataset", "7Scenes", "--scene", "heads", "--model", "mapnet",
+            "--trunk", "resnet34", "--config_file", str(ini),
+            "--learn_beta", "--learn_gamma",
+            "--data_path", str(root / "deepslam"),
+            "--asset_root", str(root / "assets")]
+    cwd = Path.cwd()
+    os.chdir(tmp)   # logs/<experiment> under the temporary directory
+    try:
+        t0 = time.time()
+        trainer = cli_train.main(argv + ["--profile_dir",
+                                         str(tmp / "train_profile")])
+        wall = time.time() - t0
+        logdir = tmp / trainer.logdir
+        names = sorted(p.name for p in logdir.glob("epoch_*.pth.tar"))
+        if names != [f"epoch_{e:03d}.pth.tar" for e in range(3)]:
+            raise AssertionError(f"checkpoints {names}")
+        records = [json.loads(ln) for ln in
+                   (logdir / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in records]
+        if not (len(losses) >= 4 and np.isfinite(losses).all()):
+            raise AssertionError(f"logged losses {losses}")
+        st = trainer.epoch_stats
+        secs = sum(e["secs"] for e in st)
+        images = sum(e["images"] for e in st)
+        data = sum(e["data_secs"] for e in st)
+        busy_ms, share = trace_busy_share(tmp / "train_profile"
+                                          / "trace.json")
+        n_val = sum(r["kind"] == "val" for r in records)
+        print(f"train CLI 7Scenes ({card_line()}): wall {wall:.2f} s for 2 "
+              f"epochs of {st[0]['steps']} steps ({n_val} validations of "
+              f"{len(trainer.val_loader)} batches, 3 checkpoints); train "
+              f"{secs:.2f} s = {images / secs:.1f} train images/s; the loop "
+              f"waited on the loader (decode, resize, jitter) {data:.2f} s = "
+              f"{data / secs:.3f} of the train time, {data / wall:.3f} of the "
+              f"wall; profiled epoch 0: card busy {busy_ms:.1f} ms = "
+              f"{share:.3f} of its span (idle {1 - share:.3f}, an upper bound "
+              f"under the profiler); losses {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}")
+
+        saved = torch.load(logdir / "epoch_002.pth.tar", map_location="cpu",
+                           weights_only=False)
+        resumed = cli_train.main(argv + ["--auto_resume"])
+        same = all(torch.equal(v.cpu(), saved["model_state_dict"][k])
+                   for k, v in resumed.model.state_dict().items())
+        print(f"--auto_resume: start epoch {resumed.start_epoch}, update "
+              f"count {resumed.optimizer.count}, weights bit-identical to "
+              f"epoch_002 {same}")
+        if resumed.start_epoch != 2 or not same or \
+                resumed.optimizer.count != saved["step"]:
+            raise AssertionError("--auto_resume did not restore epoch 2")
+
+        res = cli_eval.main([
+            "--dataset", "7Scenes", "--scene", "heads", "--model", "mapnet",
+            "--trunk", "resnet34", "--val", "--config_file", str(ini),
+            "--weights", str(logdir / "epoch_002.pth.tar"),
+            "--data_path", str(root / "deepslam"),
+            "--asset_root", str(root / "assets")])
+        errors = [res[k] for k in ("median_t", "mean_t", "median_q",
+                                   "mean_q")]
+        print(f"eval CLI on the trained checkpoint: median/mean translation "
+              f"{errors[0]:.4f} / {errors[1]:.4f} m, rotation "
+              f"{errors[2]:.3f} / {errors[3]:.3f} degrees")
+        if not np.isfinite(errors).all():
+            raise AssertionError("non-finite errors")
+    finally:
+        os.chdir(cwd)
+
+
+def check_train_cli_robotcar(root: Path, tmp: Path,
+                             config_file: Path) -> int:
+    """Phase 7 (d): one epoch of ``--raw_bayer`` training on phase 3's
+    RobotCar scene; the demosaic kernel launches once per train step and
+    per validation batch. Returns its launches."""
+    import os
+
+    from geomapnet_tpu_torch.cli import train as cli_train
+    from geomapnet_tpu_torch.ops import cuda_image
+
+    ini = write_train_ini(tmp, config_file, 1, "mapnet_rc")
+    cwd = Path.cwd()
+    os.chdir(tmp)
+    try:
+        cuda_image.launches = 0
+        t0 = time.time()
+        trainer = cli_train.main([
+            "--dataset", "RobotCar", "--scene", "loop", "--model", "mapnet",
+            "--trunk", "resnet34", "--raw_bayer", "--config_file", str(ini),
+            "--data_path", str(root / "deepslam"),
+            "--asset_root", str(root / "assets")])
+        launches = cuda_image.launches
+    finally:
+        os.chdir(cwd)
+    steps = sum(e["steps"] for e in trainer.epoch_stats)
+    val = len(trainer.val_loader)    # one validation: epoch 0 is the last
+    print(f"train CLI RobotCar --raw_bayer: wall {time.time() - t0:.2f} s, "
+          f"{steps} train steps + {val} validation batches; demosaic kernel "
+          f"launches {launches}")
+    if launches != steps + val:
+        raise AssertionError(f"K4 launched {launches} times for {steps} "
+                             f"steps and {val} validation batches")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs only "
@@ -1342,6 +1628,16 @@ def main() -> int:
         print(f"phase 6: {time.time() - t0:.2f} s; PGO windows/s "
               f"{ {k: v['windows_per_s'] for k, v in pgo.items()} } "
               f"({card}); K1/K2 launches under PGO {pgo_launches}")
+
+        # phase 7: training, the step on the card and the train CLI
+        t0 = time.time()
+        check_train_card_vs_cpu(config)
+        train = time_train_step(config, card)
+        check_train_cli_7scenes(tmp, config_file)
+        train_k4 = check_train_cli_robotcar(root, tmp, config_file)
+        print(f"phase 7: {time.time() - t0:.2f} s; train images/s "
+              f"{ {k: round(v['images_per_s'], 1) for k, v in train.items()} }"
+              f" ({card}); K4 launches in --raw_bayer training {train_k4}")
 
     f32 = kernel["float32"]
     # K4's bound: each mosaic byte read once, each float32 output written

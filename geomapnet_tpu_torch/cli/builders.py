@@ -1,10 +1,11 @@
-"""Experiment assembly for the port: model, transforms, device pipeline,
-frame dataset.
+"""Experiment assembly for the port: model, criteria, transforms, device
+pipeline, datasets, experiment name, device.
 
-The PyTorch counterpart of the eval parts of :mod:`geomapnet_tpu.cli.builders`:
-7Scenes, the synthetic scene and RobotCar raw mosaics, each with its
-ground-truth or VO ("real") poses. RobotCar's processed RGB frames are not
-ported yet and raise ``NotImplementedError`` naming ROADMAP.md.
+The PyTorch counterpart of :mod:`geomapnet_tpu.cli.builders`: 7Scenes, the
+synthetic scene and RobotCar raw mosaics, each with its ground-truth or VO
+("real") poses, for PoseNet and MapNet. RobotCar's processed RGB frames and
+MapNet++ are not ported yet and raise ``NotImplementedError`` naming
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -14,18 +15,27 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..data.composite import MF
 from ..data.transforms import ImageTransform, Normalize, std_from_stats
+from ..losses.criterion import MapNetCriterion, PoseNetCriterion
 from ..models.posenet import MapNet, PoseNet
 from ..models.resnet import resnet18, resnet34, resnet50
 from .config import ExperimentConfig
 
 __all__ = [
     "build_model",
+    "build_criteria",
     "build_transform",
     "build_device_preprocess",
     "build_raw_device_preprocess",
     "build_frame_dataset",
+    "build_datasets",
+    "experiment_name",
+    "pick_device",
 ]
+
+MAPNETPP_TODO = ("MapNet++ training is not ported yet (ROADMAP.md, Queue 1 "
+                 "item 13)")
 
 TRUNKS = {"resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50}
 
@@ -47,6 +57,24 @@ def build_model(model_name: str, config: ExperimentConfig,
         # MapNet++ differs from MapNet in training only
         return MapNet(posenet), True
     raise ValueError(f"unknown model {model_name!r}")
+
+
+def build_criteria(model_name: str, config: ExperimentConfig,
+                   learn_beta: bool, learn_gamma: bool):
+    """(train_criterion, val_criterion) as upstream scripts/train.py:86-101
+    builds them: sax/srx start at 0, beta/gamma seed saq/srq."""
+    if model_name == "posenet":
+        return (PoseNetCriterion(sax=0.0, saq=config.beta,
+                                 learn_beta=learn_beta),
+                PoseNetCriterion())
+    if model_name == "mapnet":
+        return (MapNetCriterion(sax=0.0, saq=config.beta, srx=0.0,
+                                srq=config.gamma, learn_beta=learn_beta,
+                                learn_gamma=learn_gamma),
+                MapNetCriterion())
+    if model_name == "mapnet++":
+        raise NotImplementedError(MAPNETPP_TODO)
+    raise ValueError(f"unknown model {model_name}")
 
 
 def build_transform(dataset: str, scene: str, config: ExperimentConfig,
@@ -194,3 +222,64 @@ def _build_frame_dataset(
             skip_images=skip_images, vo_lib=vo_lib or "stereo",
         )
     raise ValueError(f"unknown dataset {dataset}")
+
+
+def build_datasets(
+    model_name: str,
+    dataset: str,
+    scene: str,
+    data_path: str,
+    config: ExperimentConfig,
+    asset_root: str = "data",
+    keep_uint8: bool = False,
+    raw_bayer: bool = False,
+    cache_gb: float = 0.0,
+):
+    """(train_set, val_set) for a model family (upstream
+    scripts/train.py:131-156); ``cache_gb`` is a per-split decoded-frame RAM
+    budget (see :func:`build_frame_dataset`)."""
+    if model_name == "mapnet++":
+        raise NotImplementedError(MAPNETPP_TODO)
+    if model_name not in ("posenet", "mapnet"):
+        raise ValueError(f"unknown model {model_name}")
+    tf_train = build_transform(dataset, scene, config, asset_root, train=True,
+                               seed=config.seed, keep_uint8=keep_uint8)
+    tf_val = build_transform(dataset, scene, config, asset_root, train=False,
+                             seed=config.seed, keep_uint8=keep_uint8)
+
+    def frames(train, transform, real=False):
+        return build_frame_dataset(
+            dataset, scene, data_path, train, config, transform=transform,
+            real=real, asset_root=asset_root, raw_bayer=raw_bayer,
+            cache_gb=cache_gb,
+        )
+
+    if model_name == "posenet":
+        return frames(True, tf_train), frames(False, tf_val)
+    mf_kwargs = dict(steps=config.steps, skip=config.skip,
+                     variable_skip=config.variable_skip, seed=config.seed)
+    return (MF(frames(True, tf_train, real=config.real), **mf_kwargs),
+            MF(frames(False, tf_val, real=config.real), **mf_kwargs))
+
+
+def experiment_name(dataset, scene, model, config_file, learn_beta,
+                    learn_gamma, suffix="") -> str:
+    """`{dataset}_{scene}_{model}_{config}[_learn_beta][_learn_gamma]{suffix}`
+    (upstream scripts/train.py:159-167)."""
+    config_name = Path(config_file).stem
+    name = f"{dataset}_{scene}_{model}_{config_name}"
+    if learn_beta:
+        name += "_learn_beta"
+    if learn_gamma:
+        name += "_learn_gamma"
+    return name + suffix
+
+
+def pick_device(name: str | None) -> torch.device:
+    """The card unless ``--device`` names another device; no silent CPU."""
+    if name is None:
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device is visible; pass --device cpu "
+                             "to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(name)

@@ -5,8 +5,9 @@ scripts/eval.py): per-frame L2 translation error and quaternion
 angular error, median and mean, over the middle frame of each tuple, with
 translations un-normalized by the scene's ``pose_stats.txt``.
 
-Ported so far, with PoseNet or MapNet weights from a Flax ``.npz``, in
-float32 or (``--bf16``) bfloat16:
+Ported so far, with PoseNet or MapNet weights from a port checkpoint
+(``epoch_*.pth.tar`` of :mod:`geomapnet_tpu_torch.cli.train`), an upstream
+``.pth.tar`` or a Flax ``.npz``, in float32 or (``--bf16``) bfloat16:
 
 - 7Scenes and the synthetic scene: host decode and resize to uint8, upload,
   normalize on the device; or, with ``--device_cache``, the whole scene
@@ -78,11 +79,7 @@ from ..data.loader import Loader
 from ..data.vo_np import vos_logq_fc_np, vos_logq_np
 from ..geometry.metrics import quaternion_angular_error, translation_error
 from ..geometry.rotations import qexp_np
-from ..models.flax_import import (
-    load_npz,
-    state_dict_to_variables,
-    variables_to_state_dict,
-)
+from ..models.flax_import import state_dict_to_variables
 from ..models.quant import (
     QuantizedPoseNet,
     calibrate_activation_scales,
@@ -91,6 +88,7 @@ from ..models.quant import (
     quantize_posenet_variables,
 )
 from ..pgo import optimize_poses_batch
+from ..train.checkpoint import load_weights
 from .builders import (
     TRUNKS,
     build_device_preprocess,
@@ -98,6 +96,7 @@ from .builders import (
     build_model,
     build_raw_device_preprocess,
     build_transform,
+    pick_device,
 )
 from .config import parse_ini
 from .eval_epoch import (
@@ -449,16 +448,6 @@ def _calibration_batches(dataset, is_tuple: bool, frame_buf, idx_mat,
         loader.close()   # stops its prefetch thread
 
 
-def _pick_device(name: str | None) -> torch.device:
-    """The card unless ``--device`` names another device; no silent CPU."""
-    if name is None:
-        if not torch.cuda.is_available():
-            raise SystemExit("no CUDA device is visible; pass --device cpu "
-                             "to evaluate on the CPU")
-        return torch.device("cuda")
-    return torch.device(name)
-
-
 # flags of the JAX CLI that the port refuses, and the ROADMAP.md item that
 # ports each
 _UNPORTED_FLAGS = {
@@ -473,8 +462,10 @@ def main(argv=None) -> dict:
     parser.add_argument("--dataset", type=str, required=True,
                         choices=("7Scenes", "RobotCar", "synth"))
     parser.add_argument("--scene", type=str, default="synth")
-    parser.add_argument("--weights", type=str, required=True,
-                        help="Flax variables as an .npz (save_npz format)")
+    parser.add_argument(
+        "--weights", type=str, required=True,
+        help="a port checkpoint (epoch_*.pth.tar), an upstream .pth.tar, or "
+        "Flax variables as an .npz (save_npz format)")
     parser.add_argument("--model", required=True,
                         choices=("posenet", "mapnet", "mapnet++"))
     parser.add_argument("--trunk", default="resnet34",
@@ -561,9 +552,10 @@ def main(argv=None) -> dict:
                      "(ROADMAP.md, Queue 1)")
     if args.raw_bayer and args.dataset != "RobotCar":
         parser.error("--raw_bayer requires --dataset RobotCar")
-    if Path(args.weights).suffix != ".npz":
-        parser.error("--weights must be an .npz of Flax variables")
-    device = _pick_device(args.device)
+    if Path(args.weights).suffix not in (".npz", ".tar", ".pth"):
+        parser.error("--weights must be a .pth.tar / .pth checkpoint or an "
+                     ".npz of Flax variables")
+    device = pick_device(args.device)
 
     # fp32 eval: the JAX CLI's default dtype is float32, and cuDNN convs
     # would otherwise run in TF32
@@ -576,10 +568,9 @@ def main(argv=None) -> dict:
     use_tuples = args.model.startswith("mapnet") or args.pose_graph
     model, _ = build_model("mapnet" if use_tuples else "posenet", config,
                            trunk=args.trunk, dtype=dtype)
-    posenet = model.posenet if use_tuples else model
-    posenet.load_state_dict(variables_to_state_dict(load_npz(args.weights)))
+    kind = load_weights(args.weights, model)
     model.to(device=device, memory_format=torch.channels_last)
-    print(f"Loaded weights from {args.weights}")
+    print(f"Loaded weights from {args.weights} ({kind})")
 
     train = not args.val
     print(f"Running {args.model} on {'TRAIN' if train else 'VAL'} data "

@@ -53,13 +53,13 @@ def variables_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unknown Flax parameter {'/'.join(path)}")
         sd[f"{mod}.{name}"] = torch.from_numpy(
-            np.ascontiguousarray(arr, dtype=np.float32))
+            np.array(arr, dtype=np.float32))
     for path, arr in _leaves(variables.get("batch_stats", {})):
         mod, leaf = ".".join(path[:-1]), path[-1]
         if leaf not in _STATS:
             raise KeyError(f"unknown Flax batch statistic {'/'.join(path)}")
         sd[f"{mod}.{_STATS[leaf]}"] = torch.from_numpy(
-            np.ascontiguousarray(arr, dtype=np.float32))
+            np.array(arr, dtype=np.float32))
         sd.setdefault(f"{mod}.num_batches_tracked",
                       torch.zeros((), dtype=torch.int64))
     return sd

@@ -1,4 +1,4 @@
-"""PoseNet and MapNet pose-regression heads, for inference.
+"""PoseNet and MapNet pose-regression heads.
 
 The PyTorch counterpart of :mod:`geomapnet_tpu.models.posenet`
 (upstream models/posenet.py):
@@ -10,16 +10,18 @@ The PyTorch counterpart of :mod:`geomapnet_tpu.models.posenet`
 
 ``dtype`` places the heads' compute dtype as Flax's ``nn.Dense(dtype=...)``
 does: input, kernel and bias cast to ``dtype``, and the concatenated pose
-cast to float32. The NaN-gradient guard of MapNet++ training is not ported
-yet.
+cast to float32. Dense kernels start from ``kaiming_normal`` and biases from
+zero, as the Flax heads do. The NaN-gradient guard of MapNet++ training is
+not ported yet.
 
-Dropout is off unless the caller asks for it: ``forward(x, generator=g)``
-keeps it active at inference (BatchNorm still in inference mode), as the
-reference's ungated ``F.dropout`` does (upstream models/posenet.py:68-69,
-``stochastic=True`` in the JAX package), drawing the keep-mask from the
-explicit ``torch.Generator`` ``g``; ``keep_mask=`` injects an (N, feat_dim)
-mask instead. Flax's placement and scaling: ``fc_feat -> relu -> dropout``,
-kept features divided by ``1 - droprate``.
+Dropout (Flax's placement and scaling: ``fc_feat -> relu -> dropout``, kept
+features divided by ``1 - droprate``) is active in train mode, and at
+inference when the caller asks for it: ``forward(x, generator=g)`` keeps it
+on with BatchNorm still in inference mode, as the reference's ungated
+``F.dropout`` does (upstream models/posenet.py:68-69, ``stochastic=True`` in
+the JAX package). The keep-mask is drawn from the explicit
+``torch.Generator`` ``g`` (train mode without one draws from torch's default
+generator); ``keep_mask=`` injects an (N, feat_dim) mask instead.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .resnet import ResNet, resnet34
+from .resnet import ResNet, kaiming_normal_, resnet34
 
 __all__ = ["PoseNet", "MapNet", "Linear", "dropout_keep_mask"]
 
@@ -36,12 +38,17 @@ __all__ = ["PoseNet", "MapNet", "Linear", "dropout_keep_mask"]
 class Linear(nn.Linear):
     """``nn.Linear`` that casts its input, float32 kernel and bias to
     ``compute_dtype`` at use, as Flax's ``nn.Dense(dtype=...)`` does: the
-    matmul's output and the bias add are in ``compute_dtype``."""
+    matmul's output and the bias add are in ``compute_dtype``. The kernel
+    starts from ``kaiming_normal``, the bias from zero."""
 
     def __init__(self, cin: int, cout: int,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(cin, cout)
         self.compute_dtype = compute_dtype
+
+    def reset_parameters(self) -> None:
+        kaiming_normal_(self.weight)
+        nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -53,8 +60,8 @@ class PoseNet(nn.Module):
 
     :param feature_extractor: trunk mapping (N, H, W, 3) -> (N, F); a
         ResNet-34 when None
-    :param droprate: dropout probability after the feature fc (applied only
-        when ``forward`` gets a generator or a keep-mask)
+    :param droprate: dropout probability after the feature fc (applied in
+        train mode, or when ``forward`` gets a generator or a keep-mask)
     :param feat_dim: width of the feature fc (reference: 2048)
     :param dtype: compute dtype of the heads
     """
@@ -75,8 +82,9 @@ class PoseNet(nn.Module):
                 keep_mask: torch.Tensor | None = None) -> torch.Tensor:
         """(N, H, W, 3) -> (N, 6) ``[xyz, log-q]`` poses, float32.
 
-        With ``generator`` (on ``x``'s device) or an (N, feat_dim) boolean
-        ``keep_mask`` the dropout after ``fc_feat`` is active."""
+        In train mode, or with ``generator`` (on ``x``'s device) or an
+        (N, feat_dim) boolean ``keep_mask``, the dropout after ``fc_feat``
+        is active."""
         return self.head(self.feature_extractor(x), generator, keep_mask)
 
     def head(self, feats: torch.Tensor,
@@ -85,7 +93,8 @@ class PoseNet(nn.Module):
         """Trunk features (N, F) -> (N, 6) poses: ``fc_feat -> relu ->
         [dropout] -> fc_xyz / fc_wpqr``."""
         feats = torch.relu(self.fc_feat(feats))
-        if keep_mask is None and generator is not None and self.droprate > 0:
+        if keep_mask is None and self.droprate > 0 and (
+                generator is not None or self.training):
             keep_mask = dropout_keep_mask(feats.shape, self.droprate,
                                           generator, feats.device)
         if keep_mask is not None:
@@ -97,10 +106,12 @@ class PoseNet(nn.Module):
                          dim=-1).float()
 
 
-def dropout_keep_mask(shape, droprate: float, generator: torch.Generator,
+def dropout_keep_mask(shape, droprate: float,
+                      generator: torch.Generator | None,
                       device: torch.device) -> torch.Tensor:
     """A boolean keep-mask of ``shape``: each entry kept with probability
-    ``1 - droprate``, drawn from ``generator`` (which lives on ``device``)."""
+    ``1 - droprate``, drawn from ``generator`` (which lives on ``device``;
+    None draws from torch's default generator)."""
     return torch.rand(shape, generator=generator, device=device) \
         < 1.0 - droprate
 
@@ -112,8 +123,12 @@ class MapNet(nn.Module):
         super().__init__()
         self.posenet = posenet
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, T, H, W, C) -> (N, T, 6)."""
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None,
+                keep_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """(N, T, H, W, C) -> (N, T, 6); ``generator`` and an (N*T,
+        feat_dim) ``keep_mask`` pass on to :meth:`PoseNet.forward`."""
         n, t = x.shape[0], x.shape[1]
-        poses = self.posenet(x.reshape((n * t,) + tuple(x.shape[2:])))
+        poses = self.posenet(x.reshape((n * t,) + tuple(x.shape[2:])),
+                             generator, keep_mask)
         return poses.reshape(n, t, -1)

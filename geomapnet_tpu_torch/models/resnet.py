@@ -19,6 +19,13 @@ input and kernel to ``dtype``; BatchNorm reads float32 and writes float32,
 so the residual add, its relu, the stem's relu and max-pool and the global
 mean run in float32; the stem's output and each block's conv inputs are
 cast back to ``dtype``.
+
+Trainable as the Flax trunk: conv kernels start from ``kaiming_normal``
+(fan_in, gain sqrt(2), a plain normal), BatchNorm from scale 1 and bias 0.
+In train mode BatchNorm normalizes with the biased batch variance and moves
+its running variance toward the unbiased one at momentum 0.1, which is the
+Flax module's ``momentum=0.9`` (:class:`geomapnet_tpu.models.resnet.
+BatchNorm`).
 """
 
 from __future__ import annotations
@@ -30,19 +37,31 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["ResNet", "BasicBlock", "Bottleneck", "Conv2d", "BatchNorm2d",
-           "resnet18", "resnet34", "resnet50"]
+           "kaiming_normal_", "resnet18", "resnet34", "resnet50"]
+
+
+def kaiming_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """Flax's ``variance_scaling(2.0, "fan_in", "normal")``: a plain normal
+    of standard deviation sqrt(2 / fan_in), fan_in = every dimension of the
+    torch weight but the first (output) one."""
+    return nn.init.kaiming_normal_(weight, mode="fan_in",
+                                   nonlinearity="relu")
 
 
 class Conv2d(nn.Conv2d):
     """Bias-free ``nn.Conv2d`` that casts its input and float32 kernel to
     ``compute_dtype`` at use, as Flax's ``nn.Conv(dtype=...)`` does; the
-    output is in ``compute_dtype``."""
+    output is in ``compute_dtype``. The kernel starts from
+    :func:`kaiming_normal_`."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(cin, cout, k, stride=stride, padding=k // 2,
                          bias=False)
         self.compute_dtype = compute_dtype
+
+    def reset_parameters(self) -> None:
+        kaiming_normal_(self.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -51,11 +70,12 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` (eps 1e-5) that reads and writes float32 whatever
-    its input's dtype, as the Flax trunk's ``BatchNorm(dtype=float32)``."""
+    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) that reads and writes
+    float32 whatever its input's dtype, as the Flax trunk's
+    ``BatchNorm(dtype=float32, momentum=0.9)``."""
 
     def __init__(self, c: int):
-        super().__init__(c, eps=1e-5)
+        super().__init__(c, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.float())

@@ -7,6 +7,7 @@ same inputs, exactly.
 
 import ast
 import dataclasses
+import json
 import pkgutil
 import subprocess
 import sys
@@ -86,11 +87,13 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_new_modules_are_covered():
-    """The torch geometry and PGO modules are among those imported with the
-    JAX stack blocked (above) and scanned for imports (below)."""
+    """The torch geometry, PGO and training modules are among those imported
+    with the JAX stack blocked (above) and scanned for imports (below)."""
     mods = set(_port_modules())
     for m in ("geometry.quaternion", "geometry.se3", "geometry.vo", "pgo",
-              "pgo.pose_graph"):
+              "pgo.pose_graph", "losses.criterion", "models.torch_import",
+              "train.optim", "train.state", "train.checkpoint", "train.loop",
+              "utils.logger", "cli.train"):
         assert f"geomapnet_tpu_torch.{m}" in mods, m
 
 
@@ -470,3 +473,146 @@ def test_package_import_loads_no_submodule():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=60)
     assert proc.stdout.strip() == "[]", proc.stderr
+
+
+def _tree_equal(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], dict):
+            _tree_equal(a[k], b[k])
+        else:
+            assert np.asarray(a[k]).dtype == np.asarray(b[k]).dtype, k
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def _torchvision_trunk(seed=8):
+    from geomapnet_tpu.models.torchvision_layout import resnet34_state_shapes
+
+    rng = np.random.RandomState(seed)
+    return {k: rng.randn(*s).astype(np.float32) if s else np.int64(3)
+            for k, s in resnet34_state_shapes(include_fc=True).items()}
+
+
+@pytest.mark.parametrize("source", ["posenet", "mapnet", "module.mapnet",
+                                    "torchvision", "resnet50"])
+def test_torch_import_convert_copy(source):
+    """``convert_state_dict`` maps every key and value as the original: an
+    upstream PoseNet state dict, the same under MapNet's ``mapnet.`` and a
+    DataParallel ``module.mapnet.`` prefix, a torchvision ResNet-34 trunk
+    (its ImageNet ``fc`` dropped) and a ResNet-50 one."""
+    import geomapnet_tpu.models.torch_import as jti
+    from geomapnet_tpu.models import torchvision_layout as tl
+    from geomapnet_tpu_torch.models import torch_import as pti
+
+    if source == "torchvision":
+        sd = _torchvision_trunk()
+    elif source == "resnet50":
+        sd = tl.synthetic_resnet50_state_dict(torch_tensors=False)
+    else:
+        sd = tl.synthetic_posenet_state_dict(feat_dim=16,
+                                             torch_tensors=False)
+        if source != "posenet":
+            sd = {f"{source}.{k}": v for k, v in sd.items()}
+    _tree_equal(pti.convert_state_dict(sd), jti.convert_state_dict(sd))
+    if source == "posenet":
+        bad = dict(sd, **{"extra.weight": np.zeros(2, np.float32)})
+        for mod in (pti, jti):
+            with pytest.raises(KeyError, match="unmapped torch key"):
+                mod.convert_state_dict(bad, strict=True)
+
+
+def test_torch_import_checkpoint_npz_and_merge_copies(tmp_path):
+    """``load_torch_checkpoint`` of an upstream ``.pth.tar``, the npz round
+    trip across the two packages, and ``merge_variables`` (a partial
+    import, a shape mismatch, an unknown key) as the originals."""
+    import torch
+
+    import geomapnet_tpu.models.torch_import as jti
+    from geomapnet_tpu.models import torchvision_layout as tl
+    from geomapnet_tpu_torch.models import torch_import as pti
+
+    sd = tl.synthetic_posenet_state_dict(feat_dim=16)
+    path = tmp_path / "epoch_010.pth.tar"
+    torch.save({"epoch": 10, "model_state_dict": {
+        f"mapnet.{k}": v for k, v in sd.items()}}, path)
+    ours, theirs = (m.load_torch_checkpoint(str(path)) for m in (pti, jti))
+    _tree_equal(ours, theirs)
+
+    pti.save_npz(str(tmp_path / "a.npz"), ours)
+    jti.save_npz(str(tmp_path / "b.npz"), theirs)
+    _tree_equal(jti.load_npz(str(tmp_path / "a.npz")),
+                pti.load_npz(str(tmp_path / "b.npz")))
+
+    trunk_only = {c: {"feature_extractor": t["feature_extractor"]}
+                  for c, t in ours.items()}
+    base = jti.convert_state_dict(
+        tl.synthetic_posenet_state_dict(feat_dim=16, torch_tensors=False))
+
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict) else np.zeros_like(v)
+                for k, v in tree.items()}
+
+    base = zeros(base)
+    _tree_equal(pti.merge_variables(base, trunk_only),
+                jti.merge_variables(base, trunk_only))
+    wrong = {"params": {"fc_xyz": {"bias": np.zeros(5, np.float32)}}}
+    unknown = {"params": {"fc_extra": {"bias": np.zeros(3, np.float32)}}}
+    for mod in (pti, jti):
+        with pytest.raises(ValueError, match="shape mismatch"):
+            mod.merge_variables(base, wrong)
+        with pytest.raises(KeyError, match="not in model"):
+            mod.merge_variables(base, unknown)
+
+
+@pytest.mark.parametrize("args", [
+    ("7Scenes", "heads", "mapnet", "configs/mapnet.ini", True, True, ""),
+    ("RobotCar", "loop", "posenet", "/x/posenet.ini", True, False, "_a"),
+    ("synth", "synth", "mapnet", "tiny.ini", False, False, ""),
+])
+def test_experiment_name_copy(args):
+    from geomapnet_tpu.cli.builders import experiment_name as jax_name
+    from geomapnet_tpu_torch.cli.builders import experiment_name
+
+    assert experiment_name(*args) == jax_name(*args)
+
+
+def test_logger_copies(tmp_path, capsys):
+    """``MetricsWriter`` writes the same records as the original (its
+    wall-clock stamp aside), ``AverageMeter`` keeps the same running
+    values, ``Tee`` mirrors stdout to its file as the original does."""
+    from geomapnet_tpu.utils import logger as jl
+    from geomapnet_tpu_torch.utils import logger as pl
+
+    records = [dict(kind="train", step=1, loss=0.25, lr=1e-4, sax=0.0),
+               dict(kind="val", epoch=0, step=4, loss=1.5),
+               dict(kind="train", step=5, t=7.0)]
+    for name, mod in (("port", pl), ("jax", jl)):
+        w = mod.MetricsWriter(tmp_path / name / "metrics.jsonl")
+        for r in records:
+            w.write(**r)
+        w.close()
+        assert not mod.MetricsWriter(tmp_path / "off.jsonl",
+                                     enabled=False).enabled
+    lines = [[json.loads(x) for x in open(tmp_path / n / "metrics.jsonl")]
+             for n in ("port", "jax")]
+    for a, b in zip(*lines, strict=True):
+        assert a.keys() == b.keys()
+        assert {k: v for k, v in a.items() if k != "t"} == \
+            {k: v for k, v in b.items() if k != "t"}
+    assert lines[0][2]["t"] == lines[1][2]["t"] == 7.0
+
+    meters = [mod.AverageMeter() for mod in (pl, jl)]
+    for v, n in ((1.0, 1), (3.5, 2), (0.25, 4)):
+        for m in meters:
+            m.update(v, n)
+        assert vars(meters[0]) == vars(meters[1])
+
+    for name, mod in (("port", pl), ("jax", jl)):
+        tee = mod.Tee(tmp_path / f"{name}.txt").install()
+        try:
+            print(f"line {name}")
+        finally:
+            tee.uninstall()
+            tee.close()
+        assert (tmp_path / f"{name}.txt").read_text() == f"line {name}\n"
+    assert capsys.readouterr().out == "line port\nline jax\n"
