@@ -105,6 +105,27 @@ prints no result line):
    (d) ``cli.train.main --raw_bayer`` on phase 3's RobotCar scene for one
    epoch: the demosaic kernel's launches must equal the train steps plus
    the validation batches.
+8. Training from the device frame cache: phase 3's RobotCar scene raised
+   to 200 train and 200 test frames. (a) On the cached mosaics at full
+   width (MapNet ResNet-34, configs/mapnet.ini, the demosaic kernel in the
+   preprocess), one ``KLaunch`` of K=5 steps (a CUDA graph) against 5
+   eager steps from the same state, batches and dropout draws, in float32
+   and bf16: losses, parameters, BatchNorm statistics, loss weights and the
+   optimizer's state within ``TRAIN_TOL``, and whether they are bit-equal;
+   the same for 5 validation batches. (b) ``cli.train.main --raw_bayer
+   --device_cache`` for 3 epochs in float32 with K=1, bf16 with K=1 and
+   K=5, and bf16 ``--bn_bf16_bwd``: train images/s over epochs 1-2, the
+   loader wait, the card's busy share of one more profiled epoch, peak
+   memory (the cache included) and the upload seconds; the demosaic
+   kernel's launches (graph replays counted) must equal the train steps
+   plus the validation batches. (c) ``--ingest_overlap`` against the serial
+   upload-then-train run (bf16, 2 epochs): the first epoch's wall with its
+   upload, and the shuffle stream after epoch 2 equal to the serial run's.
+   (d) phase 7's 7Scenes scene with ``--device_cache``: configs/posenet.ini
+   (no jitter) trains from the cache, configs/mapnet.ini (colour jitter)
+   prints "device_cache disabled" and trains from the loader. (e) the bf16
+   step with and without ``bn_bf16_bwd`` (CUDA events, in turns) after a
+   check that its forward and BatchNorm statistics are bit-identical.
 
 The line before the last is a JSON object with every kernel's launches on
 its main path, error, times and bound; the last line is
@@ -1243,7 +1264,7 @@ def check_eval_dropout(p4: dict, tmp: Path, config_file: Path) -> None:
 
 
 def train_setup(config, dtype=torch.float32, device="cpu", state=None,
-                preprocess=None):
+                preprocess=None, bn_bf16_bwd=False):
     """A MapNet (ResNet-34, feat_dim 2048) with its criterion (beta and
     gamma learned), optimizer and train step (through ``preprocess``) on
     ``device``; the weights from ``state`` when given, else from torch's
@@ -1254,7 +1275,7 @@ def train_setup(config, dtype=torch.float32, device="cpu", state=None,
 
     torch.manual_seed(SEED)
     model, _ = builders.build_model("mapnet", config, trunk="resnet34",
-                                    dtype=dtype)
+                                    dtype=dtype, bn_bf16_bwd=bn_bf16_bwd)
     if state is not None:
         model.load_state_dict(state)
     model.to(device=device, memory_format=torch.channels_last)
@@ -1489,6 +1510,474 @@ def check_train_cli_robotcar(root: Path, tmp: Path,
     return launches
 
 
+PHASE8_FRAMES = 200       # train and test split of phase 8's RobotCar scene
+PHASE8_K = 5              # steps per launch in phase 8
+
+
+def extend_robotcar_scene(root: Path, n: int) -> None:
+    """Raise both sequences of phase 3's RobotCar scene to ``n`` frames: new
+    native 960x1280 mosaics (random, from the seed), stereo timestamps and
+    INS rows continuing tools/make_verify_fixture.py's pattern."""
+    from PIL import Image
+
+    scene = root / "deepslam" / "RobotCar" / "loop"
+    for s, seq_name in enumerate(("2014-06-26-08-53-56",
+                                  "2014-06-26-09-24-58")):
+        seq = scene / seq_name
+        ts_file = seq / "stereo.timestamps"
+        have = len(ts_file.read_text().splitlines())
+        new = range(have, n)
+        with open(ts_file, "a") as f:
+            f.writelines(f"{1000 * (i + 1)} {i}\n" for i in new)
+        with open(seq / "gps" / "ins.csv", "a") as f:
+            f.writelines(f"{1000 * (i + 1)},INS_SOLUTION_GOOD,0,0,0,"
+                         f"{5e6 + s + i * 1.0},{6e5 + i * 0.5},"
+                         f"{-1.0 - 0.1 * i},30U,0,0,0,0,0,{0.05 * i}\n"
+                         for i in new)
+
+        def write(i, seq=seq, s=s):
+            mosaic = np.random.RandomState(SEED + 10_000 * s + i).randint(
+                0, 255, (960, 1280), dtype=np.uint8)
+            Image.fromarray(mosaic).save(
+                seq / "stereo" / "centre" / f"{1000 * (i + 1)}.png",
+                compress_level=1)
+
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(write, new))
+
+
+def cache_state_tensors(model, crit, step) -> dict:
+    """Every tensor a train step moves, by name: parameters, BatchNorm
+    statistics, loss weights, the optimizer's state, update count and
+    rate."""
+    opt = step.optimizer
+    out = dict(model.state_dict(keep_vars=True))
+    out.update({f"crit.{k}": v for k, v in crit.named_parameters()})
+    out.update({"opt.step_t": opt.step_t, "opt.lr_t": opt.lr_t})
+    for i, st in enumerate(opt.optimizer.state.values()):
+        out.update({f"opt.{i}.{k}": v for k, v in st.items()
+                    if torch.is_tensor(v)})
+    return out
+
+
+def state_gap(a: dict, b: dict) -> tuple[float, str, bool]:
+    """The largest gap between two states, relative to its tensor's
+    max-abs, its tensor's name, and whether the states are bit-equal."""
+    worst, name, same = 0.0, "", True
+    for k, x in a.items():
+        x, y = x.detach().double(), b[k].detach().double()
+        same = same and torch.equal(x, y)
+        gap = float((x - y).abs().max() / max(float(y.abs().max()), 1e-30))
+        if gap > worst:
+            worst, name = gap, k
+    return worst, name, same
+
+
+def check_graph_vs_eager(root: Path, config) -> dict:
+    """Phase 8 (a): one ``KLaunch`` of K train steps (a CUDA graph) against
+    K eager steps from the same state, batches and dropout draws, on the
+    RobotCar frame cache at full width, in float32 and bf16, with cuDNN's
+    deterministic algorithms (two eager runs from the same state are then
+    bit-equal: the control); the same for K validation batches."""
+    from geomapnet_tpu_torch.cli import builders
+    from geomapnet_tpu_torch.data.composite import MF
+    from geomapnet_tpu_torch.data.device_cache import (
+        IndexLoader,
+        upload_dataset_frames,
+    )
+    from geomapnet_tpu_torch.data.robotcar import RobotCar
+    from geomapnet_tpu_torch.train.loop import KLaunch
+    from geomapnet_tpu_torch.train.state import make_eval_step
+
+    K = PHASE8_K
+    data = str(root / "deepslam" / "RobotCar")
+    assets = str(root / "assets")
+    ds = MF(RobotCar("loop", data, train=True,
+                     asset_dir=str(Path(assets) / "RobotCar")),
+            steps=config.steps, skip=config.skip, seed=config.seed)
+    t0 = time.time()
+    cache = upload_dataset_frames(ds, torch.device("cuda"))
+    torch.cuda.synchronize()
+    print(f"phase 8 (a): {cache.shape[0]} mosaics cached "
+          f"({cache.nbytes / 2 ** 30:.3f} GiB) in {time.time() - t0:.2f} s")
+    batches = []
+    for idx, poses, _ in IndexLoader(ds, config.batch_size, shuffle=True,
+                                     seed=config.seed):
+        batches.append((idx, poses))
+        if len(batches) == 2 * K:
+            break
+    idx_k = np.stack([b[0] for b in batches[K:]])
+    poses_k = np.stack([b[1] for b in batches[K:]])
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            pre = builders.build_raw_device_preprocess("loop", assets,
+                                                       dtype=dtype)
+            model, crit, step = train_setup(config, dtype, "cuda",
+                                            preprocess=pre)
+            launch = KLaunch(lambda i, p, f: step(i, p, seed=SEED, frames=f),
+                             K, torch.device("cuda"))
+            # the first launch runs eagerly (warm-up); the second captures
+            launch(np.stack([b[0] for b in batches[:K]]),
+                   np.stack([b[1] for b in batches[:K]]), cache)
+            tensors = cache_state_tensors(model, crit, step)
+            start = {k: t.detach().clone() for k, t in tensors.items()}
+
+            def restore():
+                with torch.no_grad():
+                    for k, t in tensors.items():
+                        t.copy_(start[k])
+
+            def eager():
+                restore()
+                losses = torch.stack([
+                    step(torch.from_numpy(i).cuda(),
+                         torch.from_numpy(p).cuda(), seed=SEED, frames=cache)
+                    for i, p in zip(idx_k, poses_k)])
+                torch.cuda.synchronize()
+                return losses, {k: t.detach().clone()
+                                for k, t in tensors.items()}
+
+            g_losses = launch(idx_k, poses_k, cache)
+            graph_state = {k: t.detach().clone() for k, t in tensors.items()}
+            e_losses, eager_state = eager()
+            c_losses, control_state = eager()
+            rel = float(((g_losses - e_losses).abs() / e_losses.abs()).max())
+            worst, where, bitwise = state_gap(graph_state, eager_state)
+            bitwise = bitwise and torch.equal(g_losses, e_losses)
+            c_worst, _, c_bitwise = state_gap(control_state, eager_state)
+            # K validation batches through their own graph
+            ev = make_eval_step(model, crit, pre)
+            elaunch = KLaunch(lambda i, p, f: ev(i, p, frames=f)[0], K,
+                              torch.device("cuda"))
+            for _ in range(2):
+                elaunch(idx_k, poses_k, cache)
+            v_graph = elaunch(idx_k, poses_k, cache)
+            v_eager = torch.stack([ev(torch.from_numpy(i).cuda(),
+                                      torch.from_numpy(p).cuda(),
+                                      frames=cache)[0]
+                                   for i, p in zip(idx_k, poses_k)])
+            v_rel = float(((v_graph - v_eager).abs() / v_eager.abs()).max())
+            per = launch.per_replay["demosaic_half_normalize"]
+            print(f"phase 8 (a) {name}: K={K} graph vs {K} eager steps: "
+                  f"losses rel {rel}, largest state gap {worst} of its "
+                  f"tensor's max-abs ({where}; {len(tensors)} tensors), "
+                  f"bit-equal {bitwise}; control (eager vs eager) gap "
+                  f"{c_worst}, bit-equal {c_bitwise}; {K} validation "
+                  f"batches graph vs eager rel {v_rel}; K4 launches per "
+                  f"train replay {per}; update count {step.optimizer.count}"
+                  f", step_t {int(step.optimizer.step_t)}; losses "
+                  f"{[round(float(v), 4) for v in g_losses]}")
+            if not (rel <= TRAIN_TOL and worst <= TRAIN_TOL
+                    and v_rel <= TRAIN_TOL):
+                raise AssertionError(f"{name}: the K-step graph differs "
+                                     f"from {K} eager steps")
+            if per != K or elaunch.per_replay["demosaic_half_normalize"] != K:
+                raise AssertionError(f"K4 captured {per} times in a "
+                                     f"{K}-step graph")
+            out[name] = dict(rel=rel, worst=worst, bitwise=bitwise)
+            del model, crit, step, launch, elaunch, ev
+            torch.cuda.empty_cache()
+        out.update(check_graph_optimizers(config))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_graph_optimizers(config) -> dict:
+    """Phase 8 (a), the other optimizers: SGD (momentum 0.9, the rate
+    decayed 10x at update 7, inside the graph's 5 steps) and RMSprop, a
+    K=5 graph against 5 eager steps on a small MapNet (ResNet-18, 2x3
+    frames of 64x96 from a random uint8 cache), bit for bit."""
+    from geomapnet_tpu_torch.cli import builders
+    from geomapnet_tpu_torch.ops.image import normalize
+    from geomapnet_tpu_torch.train.loop import KLaunch
+    from geomapnet_tpu_torch.train.optim import make_optimizer
+    from geomapnet_tpu_torch.train.state import make_train_step
+
+    K = PHASE8_K
+    rng = np.random.RandomState(SEED + 9)
+    cache = torch.from_numpy(rng.randint(0, 256, (16, 64, 96, 3),
+                                         dtype=np.uint8)).cuda()
+    idx = rng.randint(0, 16, (2 * K, 2, 3)).astype(np.int32)
+    poses = (rng.randn(2 * K, 2, 3, 6) * 0.1).astype(np.float32)
+    mean, std = (0.45, 0.45, 0.46), (0.28, 0.28, 0.27)
+    out = {}
+    for method, kw in (("sgd", dict(momentum=0.9, lr_decay=0.1,
+                                    lr_stepvalues=[7])),
+                       ("rmsprop", {})):
+        torch.manual_seed(SEED)
+        model, _ = builders.build_model("mapnet", config, trunk="resnet18")
+        model.cuda().to(memory_format=torch.channels_last)
+        crit, _ = builders.build_criteria("mapnet", config, True, True)
+        crit.cuda()
+        opt = make_optimizer(method, 1e-3, model, crit, 5e-4,
+                             steps_per_epoch=1, **kw)
+        step = make_train_step(model, crit, opt,
+                               lambda im: normalize(im, mean, std))
+        launch = KLaunch(lambda i, p, f: step(i, p, seed=SEED, frames=f), K,
+                         torch.device("cuda"))
+        launch(idx[:K], poses[:K], cache)
+        tensors = cache_state_tensors(model, crit, step)
+        start = {k: t.detach().clone() for k, t in tensors.items()}
+        g_losses = launch(idx[K:], poses[K:], cache)
+        lr_graph = float(opt.lr_t)
+        graph = {k: t.detach().clone() for k, t in tensors.items()}
+        with torch.no_grad():
+            for k, t in tensors.items():
+                t.copy_(start[k])
+        e_losses = torch.stack([
+            step(torch.from_numpy(i).cuda(), torch.from_numpy(p).cuda(),
+                 seed=SEED, frames=cache)
+            for i, p in zip(idx[K:], poses[K:])])
+        torch.cuda.synchronize()
+        worst, where, same = state_gap(graph, cache_state_tensors(
+            model, crit, step))
+        same = same and torch.equal(g_losses, e_losses)
+        print(f"phase 8 (a) {method}: K={K} graph vs {K} eager steps "
+              f"bit-equal {same}, largest state gap {worst} ({where}); "
+              f"rate after the graph {lr_graph}, after eager "
+              f"{float(opt.lr_t)} (schedule {opt.schedule(2 * K - 1)})")
+        if not (worst <= TRAIN_TOL and lr_graph == float(opt.lr_t)
+                and lr_graph == np.float32(opt.schedule(2 * K - 1))):
+            raise AssertionError(f"{method}: the K-step graph differs from "
+                                 f"{K} eager steps")
+        out[method] = dict(worst=worst, bitwise=same)
+        del model, crit, opt, step, launch
+    return out
+
+
+def run_train_cli(argv: list, tmp: Path):
+    """``cli.train.main(argv)`` from ``tmp``, with the peak of device memory
+    and K4's launches the run made (graph replays included)."""
+    import os
+
+    from geomapnet_tpu_torch.cli import train as cli_train
+    from geomapnet_tpu_torch.ops import cuda_image
+
+    cwd = Path.cwd()
+    os.chdir(tmp)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_image.launches = 0
+        t0 = time.time()
+        trainer = cli_train.main(argv)
+        wall = time.time() - t0
+        counted = cuda_image.launches
+    finally:
+        os.chdir(cwd)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    k4 = counted
+    for g in trainer.graph_launches().values():
+        per = g["per_replay"].get("demosaic_half_normalize", 0)
+        k4 += (g["replays"] - 1) * per
+    return trainer, dict(wall=wall, peak_gib=peak, k4=k4,
+                         k4_counted=counted)
+
+
+def steady(trainer, first: int = 1) -> dict:
+    """Train images/s and the loader's share of the train time over the
+    epochs from ``first`` on (epoch 0 pays set-up and, with K > 1, the
+    eager warm-up launch and the capture)."""
+    st = trainer.epoch_stats[first:]
+    secs = sum(e["secs"] for e in st)
+    return dict(images_per_s=sum(e["images"] for e in st) / secs,
+                data_share=sum(e["data_secs"] for e in st) / secs,
+                step_ms=secs / sum(e["steps"] for e in st) * 1e3)
+
+
+def profile_epoch(trainer, tmp: Path, name: str) -> float:
+    """The card's busy share of one more epoch under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.metrics.enabled = False     # its file closed with the run
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_epoch(len(trainer.epoch_stats))
+        torch.cuda.synchronize()
+    trace = tmp / f"{name}_trace.json"
+    prof.export_chrome_trace(str(trace))
+    return trace_busy_share(trace)[1]
+
+
+def check_cache_training(root: Path, tmp: Path, config_file: Path,
+                         card: str) -> dict:
+    """Phase 8 (b), (c), (e): RobotCar ``--raw_bayer --device_cache``
+    training through the CLI at full width."""
+    ini3 = write_train_ini(tmp, config_file, 3, "mapnet_rc3")
+    ini2 = write_train_ini(tmp, config_file, 2, "mapnet_rc2")
+    base = ["--dataset", "RobotCar", "--scene", "loop", "--model", "mapnet",
+            "--trunk", "resnet34", "--raw_bayer", "--learn_beta",
+            "--learn_gamma", "--data_path", str(root / "deepslam"),
+            "--asset_root", str(root / "assets")]
+    runs = {}
+    for name, extra in (("f32_k1", []), ("bf16_k1", ["--bf16"]),
+                        ("bf16_k5", ["--bf16", "--steps_per_launch",
+                                     str(PHASE8_K)]),
+                        ("bf16_bnbwd_k1", ["--bf16", "--bn_bf16_bwd"])):
+        trainer, r = run_train_cli(
+            base + ["--config_file", str(ini3), "--device_cache",
+                    "--suffix", f"_{name}"] + extra, tmp)
+        steps = sum(e["steps"] for e in trainer.epoch_stats)
+        n_val = len(trainer.val_loader) * 3
+        if r["k4"] != steps + n_val:
+            raise AssertionError(f"{name}: K4 ran {r['k4']} times for "
+                                 f"{steps} steps and {n_val} validation "
+                                 f"batches")
+        records = [json.loads(ln) for ln in
+                   (tmp / trainer.logdir / "metrics.jsonl").read_text()
+                   .splitlines()]
+        if not np.isfinite([x["loss"] for x in records]).all():
+            raise AssertionError(f"{name}: non-finite losses")
+        r.update(steady(trainer), upload_secs=trainer.upload_secs,
+                 steps=steps, val_batches=n_val,
+                 graphs=trainer.graph_launches())
+        r["busy_share"] = profile_epoch(trainer, tmp, name)
+        print(f"phase 8 (b) {name} ({card}): train {r['images_per_s']:.1f} "
+              f"images/s ({r['step_ms']:.2f} ms a step) over epochs 1-2, "
+              f"loader wait {r['data_share']:.4f} of the train time, card "
+              f"busy {r['busy_share']:.3f} of a profiled epoch, peak memory "
+              f"{r['peak_gib']:.3f} GiB (cache included), upload "
+              f"{r['upload_secs']:.2f} s, wall {r['wall']:.2f} s; K4 ran "
+              f"{r['k4']} times = {steps} steps + {n_val} validation "
+              f"batches (counted at launch or capture {r['k4_counted']}, "
+              f"graphs {r['graphs']})")
+        runs[name] = r
+        del trainer
+        torch.cuda.empty_cache()
+
+    # (c) --ingest_overlap against the serial upload-then-train run
+    loaders = {}
+    for name, extra in (("serial", []), ("overlap", ["--ingest_overlap"])):
+        trainer, r = run_train_cli(
+            base + ["--config_file", str(ini2), "--device_cache", "--bf16",
+                    "--suffix", f"_{name}"] + extra, tmp)
+        e0 = trainer.epoch_stats[0]["secs"]
+        first = e0 + trainer.upload_secs
+        loaders[name] = trainer.train_loader.rng.get_state()
+        print(f"phase 8 (c) {name}: first epoch {e0:.2f} s + upload "
+              f"{trainer.upload_secs:.2f} s = {first:.2f} s; epoch 1 "
+              f"{trainer.epoch_stats[1]['secs']:.2f} s")
+        runs[name] = dict(first_epoch=first, epoch0=e0,
+                          upload_secs=trainer.upload_secs)
+        del trainer
+        torch.cuda.empty_cache()
+    same = all(np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
+               for a, b in zip(loaders["serial"], loaders["overlap"]))
+    print(f"phase 8 (c): the shuffle stream after 2 epochs equal {same} "
+          f"(epoch 2 drew the serial run's batches)")
+    if not same:
+        raise AssertionError("--ingest_overlap: epoch 2 drew other batches")
+    return runs
+
+
+def check_step_bn_bf16_bwd(root: Path, config, card: str) -> dict:
+    """Phase 8 (e): the bf16 train step with and without ``bn_bf16_bwd``
+    on the RobotCar cache (CUDA events, in turns), and the forward and
+    BatchNorm statistics of the two bit for bit."""
+    from geomapnet_tpu_torch.cli import builders
+    from geomapnet_tpu_torch.data.composite import MF
+    from geomapnet_tpu_torch.data.device_cache import (
+        IndexLoader,
+        upload_dataset_frames,
+    )
+    from geomapnet_tpu_torch.data.robotcar import RobotCar
+
+    assets = str(root / "assets")
+    ds = MF(RobotCar("loop", str(root / "deepslam" / "RobotCar"),
+                     train=True, asset_dir=str(Path(assets) / "RobotCar")),
+            steps=config.steps, skip=config.skip, seed=config.seed)
+    cache = upload_dataset_frames(ds, torch.device("cuda"))
+    idx, poses, _ = next(iter(IndexLoader(ds, config.batch_size)))
+    idx, poses = torch.from_numpy(idx).cuda(), torch.from_numpy(poses).cuda()
+    pre = builders.build_raw_device_preprocess("loop", assets,
+                                               dtype=torch.bfloat16)
+    steps, models = {}, {}
+    for flag in (False, True):
+        torch.manual_seed(SEED)
+        model, _ = builders.build_model("mapnet", config, trunk="resnet34",
+                                        dtype=torch.bfloat16,
+                                        bn_bf16_bwd=flag)
+        if flag:
+            model.load_state_dict(models[False].state_dict())
+        model.cuda().to(memory_format=torch.channels_last).train()
+        models[flag] = model
+    from geomapnet_tpu_torch.train.state import gather_frames
+
+    # the trunks (the heads' train-mode dropout draws from the global
+    # generator), on the batch's 60 frames
+    x = pre(gather_frames(cache, idx)).flatten(0, 1)
+    with torch.no_grad():
+        outs = [models[f].posenet.feature_extractor(x)
+                for f in (False, True)]
+    same = torch.equal(outs[0], outs[1]) and all(
+        torch.equal(a, b) for a, b in zip(models[False].buffers(),
+                                          models[True].buffers()))
+    print(f"phase 8 (e): bn_bf16_bwd forward and BatchNorm statistics "
+          f"bit-identical to the default on the card: {same}")
+    if not same:
+        raise AssertionError("bn_bf16_bwd changed the forward")
+    for flag in (False, True):
+        state = models[flag].state_dict()
+        _, _, step = train_setup(config, torch.bfloat16, "cuda",
+                                 state=state, preprocess=pre,
+                                 bn_bf16_bwd=flag)
+        steps[flag] = step
+    ms = {False: [], True: []}
+    for flag in (False, True, True, False):
+        ms[flag].append(cuda_ms(lambda: steps[flag](idx, poses, seed=SEED,
+                                                    frames=cache),
+                                reps=5, groups=3))
+    out = {("bnbwd" if f else "default"): float(np.mean(v))
+           for f, v in ms.items()}
+    print(f"phase 8 (e) ({card}): bf16 train step {out['default']:.3f} ms, "
+          f"with bn_bf16_bwd {out['bnbwd']:.3f} ms (CUDA events, in turns "
+          f"default, bnbwd, bnbwd, default: {ms})")
+    del cache, steps, models
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_cache_7scenes(tmp: Path) -> dict:
+    """Phase 8 (d): 7Scenes ``--device_cache`` training with configs/
+    posenet.ini (no jitter: the cache runs) and with configs/mapnet.ini
+    (colour jitter: the cache turns itself off and the loader feeds)."""
+    root = tmp / "7scenes_train"
+    out = {}
+    for name, cfg_name, epochs in (("posenet", "posenet.ini", 2),
+                                   ("mapnet", "mapnet.ini", 1)):
+        ini = write_train_ini(tmp, ROOT / "configs" / cfg_name, epochs,
+                              f"{name}_7s_cache")
+        trainer, r = run_train_cli([
+            "--dataset", "7Scenes", "--scene", "heads", "--model", name,
+            "--trunk", "resnet34", "--config_file", str(ini),
+            "--device_cache", "--data_path", str(root / "deepslam"),
+            "--asset_root", str(root / "assets")], tmp)
+        log = (tmp / trainer.logdir / "log.txt").read_text()
+        disabled = "device_cache disabled" in log
+        st = trainer.epoch_stats[-1]
+        print(f"phase 8 (d) {name} ({cfg_name}): device_cache "
+              f"{trainer.device_cache}, 'device_cache disabled' printed "
+              f"{disabled}; upload {trainer.upload_secs:.2f} s; last epoch "
+              f"{st['images'] / st['secs']:.1f} train images/s, loader wait "
+              f"{st['data_secs'] / st['secs']:.3f} of it; wall "
+              f"{r['wall']:.2f} s")
+        if trainer.device_cache != (name == "posenet") or \
+                disabled != (name == "mapnet"):
+            raise AssertionError(f"{name}: the cache should run only "
+                                 f"without jitter")
+        out[name] = dict(st, upload_secs=trainer.upload_secs)
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs only "
@@ -1639,6 +2128,23 @@ def main() -> int:
               f"{ {k: round(v['images_per_s'], 1) for k, v in train.items()} }"
               f" ({card}); K4 launches in --raw_bayer training {train_k4}")
 
+        # phase 8: training from the device frame cache
+        t0 = time.time()
+        extend_robotcar_scene(root, PHASE8_FRAMES)
+        print(f"phase 8: RobotCar scene raised to {PHASE8_FRAMES} train and "
+              f"test frames in {time.time() - t0:.2f} s")
+        graphs = check_graph_vs_eager(root, config)
+        cache_runs = check_cache_training(root, tmp, config_file, card)
+        bnbwd = check_step_bn_bf16_bwd(root, config, card)
+        seven = check_cache_7scenes(tmp)
+        b_runs = ("f32_k1", "bf16_k1", "bf16_k5", "bf16_bnbwd_k1")
+        cache_k4 = sum(cache_runs[k]["k4"] for k in b_runs)
+        rates = {k: round(cache_runs[k]["images_per_s"], 1) for k in b_runs}
+        print(f"phase 8: {time.time() - t0:.2f} s; cache training images/s "
+              f"{rates} ({card}); graph vs eager {graphs}; bf16 step ms "
+              f"{bnbwd}; 7Scenes runs {sorted(seven)}; K4 launches in (b) "
+              f"{cache_k4}")
+
     f32 = kernel["float32"]
     # K4's bound: each mosaic byte read once, each float32 output written
     # once (60x960x1280 uint8 -> 60x3x480x640 float32)
@@ -1650,7 +2156,7 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": launches,
+        "launches": launches + cache_k4,
         "max_abs_err": max(k["max_abs_err"] for k in kernel.values()),
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],

@@ -41,16 +41,18 @@ TRUNKS = {"resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50}
 
 
 def build_model(model_name: str, config: ExperimentConfig,
-                trunk: str = "resnet34", dtype: torch.dtype = torch.float32
-                ) -> tuple[torch.nn.Module, bool]:
+                trunk: str = "resnet34", dtype: torch.dtype = torch.float32,
+                bn_bf16_bwd: bool = False) -> tuple[torch.nn.Module, bool]:
     """Returns (module, is_tuple_model): a PoseNet, or a MapNet around one,
     with the ``trunk`` feature extractor, ``config.dropout`` and compute
-    ``dtype`` (float32 parameters either way)."""
+    ``dtype`` (float32 parameters either way); ``bn_bf16_bwd`` gives the
+    trunk's BatchNorms the bfloat16 backward (forward unchanged)."""
     if trunk not in TRUNKS:
         raise ValueError(
             f"unknown trunk {trunk!r}; pick from {sorted(TRUNKS)}")
-    posenet = PoseNet(feature_extractor=TRUNKS[trunk](dtype),
-                      droprate=config.dropout, dtype=dtype)
+    posenet = PoseNet(
+        feature_extractor=TRUNKS[trunk](dtype, bn_bf16_bwd=bn_bf16_bwd),
+        droprate=config.dropout, dtype=dtype)
     if model_name == "posenet":
         return posenet, False
     if model_name in ("mapnet", "mapnet++"):

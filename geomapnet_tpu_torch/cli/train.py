@@ -13,9 +13,16 @@ Checkpoints ``logs/<experiment>/epoch_*.pth.tar`` load into
 first CUDA device and fails when there is none; ``--device cpu`` trains on
 the CPU. TF32 stays off (float32 means float32, as in eval).
 
+``--device_cache`` trains from the device frame cache (each split uploaded
+once, batches gathered on the device by index), ``--ingest_overlap``
+overlaps its upload with the first epoch, ``--steps_per_launch K`` runs K
+steps per launch (a CUDA graph on the card) and ``--bn_bf16_bwd`` gives
+BatchNorm the bfloat16 backward, each with the JAX CLI's meaning.
+
 Flags of the JAX CLI that the port does not run yet are refused, each
-naming the ROADMAP.md item that ports it; ``--no_mesh`` is accepted and
-does nothing (the port trains on one card).
+naming the ROADMAP.md item that ports it (``--device_cache shard`` among
+them); ``--no_mesh`` is accepted and does nothing (the port trains on one
+card).
 """
 
 from __future__ import annotations
@@ -44,9 +51,6 @@ __all__ = ["main"]
 # flags of the JAX CLI that the port refuses, and the ROADMAP.md item that
 # ports each
 _UNPORTED_FLAGS = {
-    "device_cache": "Queue 1, item 12c (device-cache training)",
-    "ingest_overlap": "Queue 1, item 12c (device-cache training)",
-    "bn_bf16_bwd": "Queue 1, item 12c (bf16 BatchNorm backward)",
     "native_loader": "Queue 1, item 15 (native decoder)",
     "distributed": "Queue 1, item 17 (multi-GPU)",
     "tensorboard": "Queue 1, item 18 (aux; the card's machine has no "
@@ -108,8 +112,26 @@ def main(argv=None) -> Trainer:
         help="decoded-frame RAM cache per split: decode is paid once "
         "(skipped for jittered transforms)")
     parser.add_argument(
+        "--device_cache", nargs="?", const=True, default=False,
+        choices=["shard"],
+        help="upload each split's frames to the device once and feed "
+        "training by on-device index gather: no host decode or image "
+        "transfer after the upload ('shard', the frame-sharded cache, is "
+        "not ported yet: ROADMAP.md, Queue 1, item 17)")
+    parser.add_argument(
+        "--ingest_overlap", action="store_true",
+        help="with --device_cache: train the first epoch from the image "
+        "loader while staging its frames; the cache is uploaded at the end "
+        "of that epoch instead of before the first step")
+    parser.add_argument(
         "--steps_per_launch", type=int, default=1, metavar="K",
-        help="K > 1 is not ported yet (ROADMAP.md, Queue 1, item 12c)")
+        help="with --device_cache, K optimizer steps per launch (a CUDA "
+        "graph of K steps on the card): the same updates, 1/K the host "
+        "dispatch")
+    parser.add_argument(
+        "--bn_bf16_bwd", action="store_true",
+        help="bfloat16 BatchNorm backward: the forward and running "
+        "statistics unchanged, the backward's elementwise math in bfloat16")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="torch.profiler trace of the first batches")
     parser.add_argument(
@@ -131,9 +153,10 @@ def main(argv=None) -> Trainer:
     if args.camera_models_dir:
         parser.error("--camera_models_dir is not ported yet (ROADMAP.md, "
                      "Queue 1, item 14)")
-    if args.steps_per_launch > 1:
-        parser.error("--steps_per_launch > 1 is not ported yet (ROADMAP.md, "
-                     "Queue 1, item 12c)")
+    if args.device_cache == "shard":
+        parser.error("--device_cache shard is not ported yet (ROADMAP.md, "
+                     "Queue 1, item 17: the frame-sharded cache needs "
+                     "several GPUs)")
     if args.model == "mapnet++":
         parser.error("--model mapnet++ is not ported yet (ROADMAP.md, "
                      "Queue 1, item 13)")
@@ -153,7 +176,8 @@ def main(argv=None) -> Trainer:
     torch.backends.cuda.matmul.allow_tf32 = False
     dtype = torch.bfloat16 if args.bf16 else torch.float32
 
-    model, _ = build_model(args.model, config, trunk=args.trunk, dtype=dtype)
+    model, _ = build_model(args.model, config, trunk=args.trunk, dtype=dtype,
+                           bn_bf16_bwd=args.bn_bf16_bwd)
     train_criterion, val_criterion = build_criteria(
         args.model, config, args.learn_beta, args.learn_gamma)
     data_path = (args.data_path if args.dataset == "synth"
@@ -188,6 +212,9 @@ def main(argv=None) -> Trainer:
         resume_optim=resume_optim, device=device,
         profile_dir=args.profile_dir, debug_nans=args.debug_nans,
         preprocess=preprocess, accum_steps=args.grad_accum,
+        device_cache=args.device_cache,
+        steps_per_launch=args.steps_per_launch,
+        ingest_overlap=args.ingest_overlap,
     )
 
     if args.pretrained_npz and checkpoint is not None:

@@ -14,8 +14,15 @@ scales the fused trunk's int8 stem input is a per-frame constant, so
 preprocess + quantize + 2x2 space-to-depth run once per scene instead of
 once per window.
 
-Sharded and multi-host uploads, ``FrameRecorder`` and ``IndexLoader`` are
-not ported yet (ROADMAP.md, Queue 1, items 12 and 17).
+Training from the cache (:class:`geomapnet_tpu_torch.train.loop.Trainer`
+with ``device_cache``) uploads each split with
+:func:`upload_dataset_frames` and draws its batches from
+:class:`IndexLoader`: int32 frame indices and poses, which the train step
+gathers from the device stack. With ``ingest_overlap`` a
+:class:`FrameRecorder` stages every frame the first epoch decodes, so the
+upload costs no second decode. Each is a copy of the JAX package's
+single-process code (tests/test_torch_import_isolation.py pins the copies);
+the sharded and multi-host uploads wait for ROADMAP.md, Queue 1, item 17.
 """
 
 from __future__ import annotations
@@ -23,7 +30,72 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["upload_frames", "quantize_rows", "s2d_frame_shape"]
+from .loader import Loader
+
+__all__ = ["upload_frames", "upload_dataset_frames", "frame_sources",
+           "FrameRecorder", "IndexLoader", "quantize_rows",
+           "s2d_frame_shape"]
+
+
+def frame_sources(dataset) -> tuple:
+    """Base frame dataset(s) a (possibly composite) dataset gathers from.
+
+    Composites declare their own ``frame_sources``; an MF-shaped composite
+    gathers from its ``dset``; plain frame datasets are their own source.
+    """
+    if hasattr(dataset, "frame_sources"):
+        return tuple(dataset.frame_sources)
+    if hasattr(dataset, "dset"):  # MF-shaped composite
+        return (dataset.dset,)
+    return (dataset,)
+
+
+class _ConcatFrames:
+    """Read-only concatenated view over several frame sources, indexed as
+    their buffers concatenate in ``frame_sources`` order."""
+
+    def __init__(self, srcs):
+        self.srcs = list(srcs)
+        self._lens = [len(s) for s in self.srcs]
+        self._offs = np.concatenate([[0], np.cumsum(self._lens)])
+
+    def __len__(self):
+        return int(self._offs[-1])
+
+    def _locate(self, i: int):
+        s = int(np.searchsorted(self._offs, i, side="right")) - 1
+        return self.srcs[s], i - int(self._offs[s])
+
+    def get_image(self, i):
+        src, j = self._locate(int(i))
+        return src.get_image(j)
+
+    def get_images(self, idx, num_workers: int = 1):
+        out = [None] * len(idx)
+        by_src: dict = {}
+        for pos, i in enumerate(idx):
+            src, j = self._locate(int(i))
+            by_src.setdefault(id(src), (src, []))[1].append((pos, j))
+        for src, pairs in by_src.values():
+            if hasattr(src, "get_images"):
+                imgs = src.get_images([j for _, j in pairs],
+                                      num_workers=num_workers)
+            else:
+                imgs = [src.get_image(j) for _, j in pairs]
+            for (pos, _), im in zip(pairs, imgs):
+                out[pos] = im
+        return out
+
+
+def upload_dataset_frames(dataset, device: torch.device,
+                          **kwargs) -> torch.Tensor:
+    """Upload every base frame of ``dataset`` (composite-aware) to
+    ``device``: one ``(N, ...)`` stack, the sources in ``frame_sources``
+    order, so a composite's ``get_indices`` rows index it directly.
+    ``kwargs`` go to :func:`upload_frames`."""
+    bufs = [upload_frames(src, device, **kwargs)
+            for src in frame_sources(dataset)]
+    return torch.cat(bufs, dim=0) if len(bufs) > 1 else bufs[0]
 
 
 def upload_frames(
@@ -123,3 +195,115 @@ def _probe_frames(frames, n: int, max_bytes: int) -> np.ndarray:
             f"{max_bytes / 2**30:.2f} GiB"
         )
     return probe
+
+
+class FrameRecorder:
+    """Capture the frames a live image-loader epoch decodes into a host
+    staging stack, so the device-cache upload costs no second decode.
+
+    :meth:`install` wraps the frame source's ``get_image`` / ``get_images``
+    *instance* attributes (which shadow the bound methods, the dataset's
+    own internal calls included) and scatters every decoded frame into
+    ``staging``; :meth:`finalize` restores them, decodes only the frames the
+    epoch never touched and returns the complete stack for one upload.
+    """
+
+    def __init__(self, src, max_bytes: int = 8 * 1024 ** 3):
+        self.src = src
+        self.n = len(src)
+        probe = _probe_frames(src, self.n, max_bytes)
+        self.staging = np.empty((self.n,) + probe.shape, probe.dtype)
+        self.seen = np.zeros(self.n, bool)
+        self.staging[0] = probe
+        self.seen[0] = True
+        self._orig: dict = {}
+
+    def _record(self, i: int, im) -> None:
+        if im is not None and 0 <= i < self.n and not self.seen[i]:
+            self.staging[i] = im
+            self.seen[i] = True
+
+    def install(self) -> "FrameRecorder":
+        src = self.src
+        orig_one = src.get_image
+        self._orig["get_image"] = orig_one
+
+        def get_image(i):
+            im = orig_one(i)
+            self._record(int(i), im)
+            return im
+
+        src.get_image = get_image
+        if hasattr(src, "get_images"):
+            orig_many = src.get_images
+            self._orig["get_images"] = orig_many
+
+            def get_images(idx, **kw):
+                imgs = orig_many(idx, **kw)
+                for i, im in zip(idx, imgs):
+                    self._record(int(i), im)
+                return imgs
+
+            src.get_images = get_images
+        return self
+
+    def restore(self) -> None:
+        for name, fn in self._orig.items():
+            setattr(self.src, name, fn)
+        self._orig.clear()
+
+    def finalize(self, num_workers: int = 4) -> np.ndarray:
+        """Decode the frames the warmup epoch never touched; return the
+        complete ``(N, ...)`` stack (a corrupt frame takes the first staged
+        one, as :func:`upload_frames` substitutes a neighbour)."""
+        self.restore()
+        missing = np.flatnonzero(~self.seen)
+        if missing.size:
+            want = [int(i) for i in missing]
+            if hasattr(self.src, "get_images"):
+                imgs = self.src.get_images(want, num_workers=num_workers)
+            else:
+                imgs = [self.src.get_image(i) for i in want]
+            fallback = self.seen.nonzero()[0][0]
+            for i, im in zip(missing, imgs):
+                self.staging[i] = self.staging[fallback] if im is None else im
+                self.seen[i] = True
+        return self.staging
+
+
+class IndexLoader(Loader):
+    """:class:`~geomapnet_tpu_torch.data.loader.Loader` for the device frame
+    cache: yields ``(frame_indices, poses, n_padded)`` instead of decoded
+    images, with the Loader's order, shuffle, padding and prefetch.
+
+    ``frame_indices`` is int32 ``(B, T)`` for tuple (MF) datasets or
+    ``(B,)`` for plain frame datasets, ready to gather from the stack
+    :func:`upload_dataset_frames` built; poses are assembled as the image
+    path assembles them (MF's pose block, or the frame dataset's
+    target-transformed pose).
+    """
+
+    def _make_batch(self, idx: np.ndarray, pad: int):
+        ds = self.dataset
+        if hasattr(ds, "get_indices"):  # tuple (MF) dataset
+            rows = [ds.get_indices(int(i)) for i in idx]
+            poses = np.stack(
+                [ds._poses_for(r).astype(np.float32) for r in rows])
+            frame_idx = np.stack(rows).astype(np.int32)
+        else:  # plain frame dataset
+            tt = getattr(ds, "target_transform", None)
+            poses = np.stack([
+                np.asarray(
+                    tt(ds.poses[int(i)]) if tt is not None
+                    else ds.poses[int(i)],
+                    np.float32,
+                )
+                for i in idx
+            ])
+            frame_idx = np.asarray(idx, np.int32)
+        if pad:
+            frame_idx = np.concatenate(
+                [frame_idx, np.repeat(frame_idx[-1:], pad, axis=0)])
+            poses = np.concatenate(
+                [poses, np.repeat(poses[-1:], pad, axis=0)])
+        return frame_idx, poses, pad

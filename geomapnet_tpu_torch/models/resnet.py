@@ -26,10 +26,20 @@ In train mode BatchNorm normalizes with the biased batch variance and moves
 its running variance toward the unbiased one at momentum 0.1, which is the
 Flax module's ``momentum=0.9`` (:class:`geomapnet_tpu.models.resnet.
 BatchNorm`).
+
+``bn_bf16_bwd=True`` gives every train-mode BatchNorm the bfloat16 backward
+of :func:`geomapnet_tpu.models.resnet.bn_train_norm_bf16bwd`
+(:class:`BatchNormBf16Backward`): the same forward and running statistics,
+the backward's elementwise math in bfloat16. Inside
+:func:`recomputing_batch_norm` (the recompute of ``remat``) a train-mode
+BatchNorm normalizes with its batch statistics and leaves its running
+statistics and batch count as the first forward left them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Sequence
 
 import torch
@@ -37,7 +47,25 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["ResNet", "BasicBlock", "Bottleneck", "Conv2d", "BatchNorm2d",
+           "BatchNormBf16Backward", "recomputing_batch_norm",
            "kaiming_normal_", "resnet18", "resnet34", "resnet50"]
+
+# set while remat recomputes a forward: BatchNorm then moves no statistic
+_RECOMPUTING = contextvars.ContextVar("recomputing_batch_norm",
+                                      default=False)
+
+
+@contextlib.contextmanager
+def recomputing_batch_norm():
+    """Train-mode BatchNorm inside this context normalizes with the batch
+    statistics, as the first forward did, and leaves the running
+    statistics and ``num_batches_tracked`` alone: a recompute must not move
+    them a second time."""
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
 
 
 def kaiming_normal_(weight: torch.Tensor) -> torch.Tensor:
@@ -69,16 +97,81 @@ class Conv2d(nn.Conv2d):
                         self.padding)
 
 
+class BatchNormBf16Backward(torch.autograd.Function):
+    """Train-mode BatchNorm whose backward does its elementwise math in
+    bfloat16: the port of :func:`geomapnet_tpu.models.resnet.
+    bn_train_norm_bf16bwd`.
+
+    The forward is the call ``F.batch_norm`` makes (``_batch_norm_impl_
+    index``, the same kernel with the same arguments), so the output, the
+    running statistics' update and the saved batch mean and inverse std
+    are those of the default BatchNorm bit for bit. The backward keeps the
+    normalized input in bfloat16 and computes, as JAX's ``_bn_bf16bwd_bwd``
+    does, ``dx = coef * (g - mean(g) - xhat * mean(g xhat))`` with ``g``,
+    ``xhat`` and every elementwise product in bfloat16, the two per-channel
+    sums accumulated in float32 and ``coef = scale * invstd`` formed in
+    float32; the scale and bias gradients are those float32 sums.
+
+    ``apply(x, weight, bias, running_mean, running_var, momentum, eps)``.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum,
+                eps):
+        y, mean, invstd, _, _ = torch.ops.aten._batch_norm_impl_index(
+            x, weight, bias, running_mean, running_var, True, momentum, eps,
+            torch.backends.cudnn.enabled)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xhat = ((x - mean.view(shape)) * invstd.view(shape)).to(
+            torch.bfloat16)
+        ctx.save_for_backward(xhat, weight, invstd)
+        ctx.x_dtype = x.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xhat, weight, invstd = ctx.saved_tensors
+        shape = (1, -1) + (1,) * (g.dim() - 2)
+        dims = (0,) + tuple(range(2, g.dim()))
+        n = g.numel() // g.shape[1]
+        gb = g.to(torch.bfloat16)
+        sum_g = torch.sum(gb, dims, dtype=torch.float32)
+        sum_gx = torch.sum(gb * xhat, dims, dtype=torch.float32)
+        bf = torch.bfloat16
+        coef = (weight.float() * invstd).to(bf).view(shape)
+        dx = coef * (gb - (sum_g / n).to(bf).view(shape)
+                     - xhat * (sum_gx / n).to(bf).view(shape))
+        return (dx.to(ctx.x_dtype), sum_gx.to(weight.dtype),
+                sum_g.to(weight.dtype), None, None, None, None)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) that reads and writes
     float32 whatever its input's dtype, as the Flax trunk's
-    ``BatchNorm(dtype=float32, momentum=0.9)``."""
+    ``BatchNorm(dtype=float32, momentum=0.9)``. With ``bf16_backward`` its
+    train-mode backward is :class:`BatchNormBf16Backward`'s."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, bf16_backward: bool = False):
         super().__init__(c, eps=1e-5, momentum=0.1)
+        self.bf16_backward = bf16_backward
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float())
+        x = x.float()
+        frozen = _RECOMPUTING.get()
+        if not self.training or not (frozen or self.bf16_backward):
+            return super().forward(x)
+        rm, rv = self.running_mean, self.running_var
+        if frozen:
+            # throwaway statistics: the recompute saves for the backward
+            # the tensors the first forward saved, and moves nothing
+            rm, rv = rm.clone(), rv.clone()
+        else:
+            self.num_batches_tracked.add_(1)
+        if self.bf16_backward:
+            return BatchNormBf16Backward.apply(x, self.weight, self.bias, rm,
+                                               rv, self.momentum, self.eps)
+        return F.batch_norm(x, rm, rv, self.weight, self.bias, True,
+                            self.momentum, self.eps)
 
 
 class BasicBlock(nn.Module):
@@ -87,16 +180,17 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin: int, filters: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 bn_bf16_bwd: bool = False):
         super().__init__()
         self.conv1 = Conv2d(cin, filters, 3, stride, dtype)
-        self.bn1 = BatchNorm2d(filters)
+        self.bn1 = BatchNorm2d(filters, bn_bf16_bwd)
         self.conv2 = Conv2d(filters, filters, 3, 1, dtype)
-        self.bn2 = BatchNorm2d(filters)
+        self.bn2 = BatchNorm2d(filters, bn_bf16_bwd)
         self.relu = nn.ReLU(inplace=True)
         if stride != 1 or cin != filters:
             self.downsample_conv = Conv2d(cin, filters, 1, stride, dtype)
-            self.downsample_bn = BatchNorm2d(filters)
+            self.downsample_bn = BatchNorm2d(filters, bn_bf16_bwd)
         else:
             self.downsample_conv = self.downsample_bn = None
 
@@ -116,19 +210,20 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, filters: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 bn_bf16_bwd: bool = False):
         super().__init__()
         out_ch = filters * 4
         self.conv1 = Conv2d(cin, filters, 1, 1, dtype)
-        self.bn1 = BatchNorm2d(filters)
+        self.bn1 = BatchNorm2d(filters, bn_bf16_bwd)
         self.conv2 = Conv2d(filters, filters, 3, stride, dtype)
-        self.bn2 = BatchNorm2d(filters)
+        self.bn2 = BatchNorm2d(filters, bn_bf16_bwd)
         self.conv3 = Conv2d(filters, out_ch, 1, 1, dtype)
-        self.bn3 = BatchNorm2d(out_ch)
+        self.bn3 = BatchNorm2d(out_ch, bn_bf16_bwd)
         self.relu = nn.ReLU(inplace=True)
         if stride != 1 or cin != out_ch:
             self.downsample_conv = Conv2d(cin, out_ch, 1, stride, dtype)
-            self.downsample_bn = BatchNorm2d(out_ch)
+            self.downsample_bn = BatchNorm2d(out_ch, bn_bf16_bwd)
         else:
             self.downsample_conv = self.downsample_bn = None
 
@@ -148,16 +243,18 @@ class ResNet(nn.Module):
     :param stage_sizes: blocks per stage, e.g. (3, 4, 6, 3) for ResNet-34
     :param block_cls: :class:`BasicBlock` (18/34) or :class:`Bottleneck` (50)
     :param dtype: compute dtype (float32, or bfloat16 at Flax's placement)
+    :param bn_bf16_bwd: every BatchNorm with the bfloat16 backward
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  block_cls: type = BasicBlock,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 bn_bf16_bwd: bool = False):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.dtype = dtype
         self.conv1 = Conv2d(3, 64, 7, 2, dtype)
-        self.bn1 = BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64, bn_bf16_bwd)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         cin = 64
@@ -166,7 +263,8 @@ class ResNet(nn.Module):
             for block in range(n_blocks):
                 stride = 2 if (stage > 0 and block == 0) else 1
                 self.add_module(f"layer{stage + 1}_{block}",
-                                block_cls(cin, filters, stride, dtype))
+                                block_cls(cin, filters, stride, dtype,
+                                          bn_bf16_bwd))
                 cin = filters * block_cls.expansion
         self.out_features = cin
 
@@ -180,17 +278,22 @@ class ResNet(nn.Module):
         return x.mean(dim=(2, 3))
 
 
-def resnet18(dtype: torch.dtype = torch.float32) -> ResNet:
+def resnet18(dtype: torch.dtype = torch.float32,
+             bn_bf16_bwd: bool = False) -> ResNet:
     """ResNet-18 trunk (lighter option for ablations/tests)."""
-    return ResNet(stage_sizes=(2, 2, 2, 2), dtype=dtype)
+    return ResNet(stage_sizes=(2, 2, 2, 2), dtype=dtype,
+                  bn_bf16_bwd=bn_bf16_bwd)
 
 
-def resnet34(dtype: torch.dtype = torch.float32) -> ResNet:
+def resnet34(dtype: torch.dtype = torch.float32,
+             bn_bf16_bwd: bool = False) -> ResNet:
     """ResNet-34 trunk: the reference's feature extractor."""
-    return ResNet(stage_sizes=(3, 4, 6, 3), dtype=dtype)
+    return ResNet(stage_sizes=(3, 4, 6, 3), dtype=dtype,
+                  bn_bf16_bwd=bn_bf16_bwd)
 
 
-def resnet50(dtype: torch.dtype = torch.float32) -> ResNet:
+def resnet50(dtype: torch.dtype = torch.float32,
+             bn_bf16_bwd: bool = False) -> ResNet:
     """ResNet-50 trunk (2048-d features)."""
     return ResNet(stage_sizes=(3, 4, 6, 3), block_cls=Bottleneck,
-                  dtype=dtype)
+                  dtype=dtype, bn_bf16_bwd=bn_bf16_bwd)

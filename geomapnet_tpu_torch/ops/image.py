@@ -45,13 +45,22 @@ def demosaic_half(raw: torch.Tensor) -> torch.Tensor:
     return torch.stack([r, (g0 + g1) * 0.5, b], dim=-1)
 
 
+@functools.lru_cache(maxsize=64)
+def _float32_constant(values, device: torch.device) -> torch.Tensor:
+    """``values`` (a float or a tuple) as a float32 tensor on ``device``,
+    made once: a copy from the host inside a CUDA graph capture would
+    fail."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def normalize(img: torch.Tensor, mean, std, dtype=torch.float32,
               scale: float = 1.0 / 255.0) -> torch.Tensor:
     """(x * scale - mean) / std over the last (channel) axis, cast to
     ``dtype``; every step in float32, as in the JAX package."""
-    f32 = dict(dtype=torch.float32, device=img.device)
-    out = img.to(torch.float32) * torch.tensor(scale, **f32)
-    out = (out - torch.tensor(mean, **f32)) / torch.tensor(std, **f32)
+    dev = img.device
+    out = img.to(torch.float32) * _float32_constant(float(scale), dev)
+    out = ((out - _float32_constant(tuple(map(float, mean)), dev))
+           / _float32_constant(tuple(map(float, std)), dev))
     return out.to(dtype)
 
 

@@ -16,30 +16,145 @@ the same per-batch data/batch-time meters, ``print_freq`` console lines and
   on the device: the host reads it back only at ``print_freq`` points, and
   validation losses stay on the device until one readback at the end.
 
-The device cache, launch fusion, ingest overlap, meshes and multi-host runs
-of the JAX Trainer are not ported yet (ROADMAP.md, Queue 1 items 12c and
-17).
+With ``device_cache`` each split is uploaded to the device once
+(:mod:`geomapnet_tpu_torch.data.device_cache`) and the steps gather their
+frames from it by index (:class:`~geomapnet_tpu_torch.data.device_cache.
+IndexLoader` batches); ``ingest_overlap`` trains the first epoch from the
+image loader while its decoded frames are staged for the upload;
+``steps_per_launch = K`` runs K train steps (and K validation batches) as
+one :class:`KLaunch`: a CUDA graph over static buffers on a card. Meshes,
+the frame-sharded cache and multi-host runs of the JAX Trainer wait for
+ROADMAP.md, Queue 1, item 17.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..data.device_cache import (
+    FrameRecorder,
+    IndexLoader,
+    frame_sources,
+    upload_dataset_frames,
+)
 from ..data.loader import Loader
+from ..ops import cuda_image
 from ..utils.logger import AverageMeter, MetricsWriter, Tee
 from .checkpoint import load_model_params, restore_checkpoint, \
     save_checkpoint
 from .optim import make_optimizer
 from .state import make_eval_step, make_train_step
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "KLaunch", "chunked"]
 
 PROFILE_BATCHES = 10
+
+
+def chunked(iterable, k):
+    """Lists of up to ``k`` consecutive items; the last may be shorter (an
+    epoch's tail, which runs as single steps)."""
+    chunk = []
+    for item in iterable:
+        chunk.append(item)
+        if len(chunk) == k:
+            yield chunk
+            chunk = []
+    if chunk:
+        yield chunk
+
+
+def _kernel_launches() -> dict:
+    """The launch counts of the kernels a training step can reach."""
+    return {"demosaic_half_normalize": cuda_image.launches}
+
+
+class KLaunch:
+    """``launch(idx_k, poses_k, frames) -> (K,) losses``: ``body(idx, poses,
+    frames) -> loss`` for each of K stacked index batches, as one launch.
+
+    On a card the stacks are copied into static device buffers and the K
+    bodies run as one CUDA graph replay. The first launch runs them eagerly
+    on a side stream (lazy set-up, the optimizer's state), the second
+    captures the graph on that stream and replays it, every later one only
+    replays. The graph reads ``frames`` and the model's tensors where they
+    were at capture, so a launch with another ``frames`` tensor raises.
+    Kernel wrappers count a launch at capture, not at replay:
+    ``per_replay`` holds each counter's launches in one capture and
+    ``replays`` the replays. On the CPU the K bodies run eagerly over the
+    same buffers.
+    """
+
+    def __init__(self, body: Callable, k: int, device: torch.device):
+        self.body = body
+        self.k = int(k)
+        self.device = torch.device(device)
+        self.graph = None
+        self.warmed = False
+        self.replays = 0
+        self.per_replay: dict = {}
+        self._idx = self._poses = self._out = None
+        self._frames_ptr = None
+
+    def _stage(self, idx_k: np.ndarray, poses_k: np.ndarray) -> None:
+        if self._idx is None or self._idx.shape != idx_k.shape:
+            if self.graph is not None:
+                raise ValueError(f"captured for {tuple(self._idx.shape)} "
+                                 f"batches, got {idx_k.shape}")
+            self._idx = torch.empty(idx_k.shape, dtype=torch.int32,
+                                    device=self.device)
+            self._poses = torch.empty(poses_k.shape, dtype=torch.float32,
+                                      device=self.device)
+        for dst, src in ((self._idx, idx_k), (self._poses, poses_k)):
+            src = torch.from_numpy(np.ascontiguousarray(src))
+            if self.device.type == "cuda":
+                src = src.pin_memory()
+            dst.copy_(src, non_blocking=True)
+
+    def _run(self, frames: torch.Tensor) -> torch.Tensor:
+        return torch.stack([self.body(self._idx[j], self._poses[j], frames)
+                            for j in range(self.k)])
+
+    def __call__(self, idx_k: np.ndarray, poses_k: np.ndarray,
+                 frames: torch.Tensor) -> torch.Tensor:
+        if len(idx_k) != self.k:
+            raise ValueError(f"a launch takes {self.k} batches, got "
+                             f"{len(idx_k)}")
+        self._stage(idx_k, poses_k)
+        if self.device.type != "cuda":
+            return self._run(frames)
+        current = torch.cuda.current_stream(self.device)
+        if self.graph is None:
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            if not self.warmed:
+                with torch.cuda.stream(side):
+                    out = self._run(frames)
+                out.record_stream(current)
+                current.wait_stream(side)
+                self.warmed = True
+                return out
+            before = _kernel_launches()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                self._out = self._run(frames)
+            current.wait_stream(side)
+            self.graph = graph
+            self._frames_ptr = frames.data_ptr()
+            self.per_replay = {k: v - before[k]
+                               for k, v in _kernel_launches().items()}
+        elif frames.data_ptr() != self._frames_ptr:
+            raise RuntimeError("the frame cache moved after the graph was "
+                               "captured")
+        self.graph.replay()
+        self.replays += 1
+        return self._out.clone()
 
 
 class Trainer:
@@ -63,6 +178,21 @@ class Trainer:
     :param preprocess: device-side image function applied in the steps (the
         loader then emits raw uint8 batches)
     :param accum_steps: gradient-accumulation microbatches per update
+    :param device_cache: upload each split's frames to the device once and
+        feed the steps by index gather; turned off, with the JAX Trainer's
+        message, when a train frame source's transform jitters (the cache
+        would freeze one draw). ``"shard"`` (the frame-sharded cache) is
+        refused: it needs several GPUs (ROADMAP.md, Queue 1, item 17)
+    :param steps_per_launch: with ``device_cache``, K train steps and K
+        validation batches per :class:`KLaunch` (a CUDA graph on a card);
+        an epoch's tail shorter than K runs single steps. Ignored, with the
+        JAX Trainer's message, without ``device_cache``
+    :param ingest_overlap: with ``device_cache``, train the first epoch
+        from the image loader while a :class:`~geomapnet_tpu_torch.data.
+        device_cache.FrameRecorder` stages its decoded frames; the cache is
+        uploaded at the end of that epoch (decode paid once), and the index
+        loader's shuffle advances one epoch, so epochs 2+ draw the batches
+        of a serial run
     """
 
     def __init__(
@@ -82,7 +212,14 @@ class Trainer:
         debug_nans: bool = False,
         preprocess=None,
         accum_steps: int = 1,
+        device_cache: bool | str = False,
+        steps_per_launch: int = 1,
+        ingest_overlap: bool = False,
     ):
+        if device_cache == "shard":
+            raise ValueError("device_cache='shard' (the frame-sharded cache) "
+                             "needs several GPUs: ROADMAP.md, Queue 1, item "
+                             "17")
         self.device = torch.device(device)
         self.model = model.to(device=self.device,
                               memory_format=torch.channels_last)
@@ -108,13 +245,33 @@ class Trainer:
         print(f"Device: {self.device} ({name})")
         print("---------------------------------------")
 
-        self.train_loader = Loader(
+        if device_cache:
+            # cached frames are post-transform: a host jitter would freeze
+            # one draw for every epoch
+            for src in frame_sources(train_dataset):
+                jitter = getattr(getattr(src, "transform", None),
+                                 "color_jitter_strength", 0)
+                if jitter:
+                    print(f"trainer: device_cache disabled — the train "
+                          f"transform jitters "
+                          f"(color_jitter_strength={jitter})")
+                    device_cache = False
+                    break
+        self.device_cache = bool(device_cache)
+        if steps_per_launch > 1 and not self.device_cache:
+            print("trainer: steps_per_launch needs device_cache "
+                  "(the batches must already live on device); ignoring")
+        self.steps_per_launch = (
+            max(1, int(steps_per_launch)) if self.device_cache else 1)
+
+        loader_cls = IndexLoader if self.device_cache else Loader
+        self.train_loader = loader_cls(
             train_dataset, config.batch_size, shuffle=config.shuffle,
             drop_last=True, seed=config.seed, num_workers=config.num_workers)
         self.val_loader = (
-            Loader(val_dataset, config.batch_size, shuffle=False,
-                   drop_last=False, seed=config.seed,
-                   num_workers=config.num_workers)
+            loader_cls(val_dataset, config.batch_size, shuffle=False,
+                       drop_last=False, seed=config.seed,
+                       num_workers=config.num_workers)
             if (config.do_val and val_dataset is not None) else None
         )
 
@@ -144,9 +301,113 @@ class Trainer:
         self.eval_step = make_eval_step(self.model, self.val_criterion,
                                         preprocess=preprocess)
 
-    def _put(self, imgs: np.ndarray, poses: np.ndarray):
+        # the device frame cache: the splits' frame stacks, the warmup
+        # epoch's recorders (ingest_overlap), the K-step launches, and the
+        # seconds spent decoding and uploading the stacks
+        self._train_frames = self._val_frames = None
+        self._warmup_pending = False
+        self._recorders: list = []
+        self._val_shares_train = False
+        self._train_launch = self._eval_launch = None
+        self.upload_secs = 0.0
+        if self.device_cache:
+            self._setup_cache(train_dataset, val_dataset, ingest_overlap)
+
+    def _setup_cache(self, train_dataset, val_dataset,
+                     ingest_overlap: bool) -> None:
+        cfg = self.config
+        nw = cfg.num_workers
+        srcs = frame_sources(train_dataset)
+        has_val = self.val_loader is not None
+        self._val_shares_train = (has_val and
+                                  frame_sources(val_dataset) == srcs)
+        t0 = time.time()
+        if ingest_overlap:
+            self._warmup_pending = True
+            self._recorders = [FrameRecorder(src).install() for src in srcs]
+            self._warmup_loader = Loader(
+                train_dataset, cfg.batch_size, shuffle=cfg.shuffle,
+                drop_last=True, seed=cfg.seed, num_workers=nw)
+            self._warmup_val_loader = (
+                Loader(val_dataset, cfg.batch_size, shuffle=False,
+                       drop_last=False, seed=cfg.seed, num_workers=nw)
+                if self._val_shares_train else None)
+            if has_val and not self._val_shares_train:
+                self._val_frames = upload_dataset_frames(
+                    val_dataset, self.device, num_workers=nw)
+        else:
+            self._train_frames = upload_dataset_frames(
+                train_dataset, self.device, num_workers=nw)
+            self._val_frames = (
+                self._train_frames if self._val_shares_train
+                else upload_dataset_frames(val_dataset, self.device,
+                                           num_workers=nw)
+                if has_val else None)
+        self._synchronize()
+        self.upload_secs = time.time() - t0
+        held = [b for b in (self._train_frames, self._val_frames)
+                if b is not None]
+        print(f"device cache: {sum(b.shape[0] for b in held)} frames, "
+              f"{sum(b.nbytes for b in held) / 2 ** 30:.3f} GiB on "
+              f"{self.device} in {self.upload_secs:.2f} s"
+              + (" (train split at the end of the warmup epoch)"
+                 if ingest_overlap else ""))
+        K = self.steps_per_launch
+        if K > 1:
+            seed = cfg.seed
+            self._train_launch = KLaunch(
+                lambda i, p, f: self.train_step(i, p, seed=seed, frames=f),
+                K, self.device)
+            self._eval_launch = KLaunch(
+                lambda i, p, f: self.eval_step(i, p, frames=f)[0], K,
+                self.device)
+
+    def _synchronize(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _put(self, imgs: np.ndarray, poses: np.ndarray, index: bool = False):
+        """A host batch on the device. Index batches (the frame cache) go
+        through pinned memory without a host sync."""
+        if index and self.device.type == "cuda":
+            return tuple(torch.from_numpy(a).pin_memory().to(
+                self.device, non_blocking=True) for a in (imgs, poses))
         return (torch.from_numpy(imgs).to(self.device),
                 torch.from_numpy(poses).to(self.device))
+
+    def graph_launches(self) -> dict:
+        """Per K-step launch (``train``, ``val``): its replays and the
+        kernel launches one replay makes (counted once, at capture, by the
+        kernels' wrappers)."""
+        return {name: dict(replays=launch.replays,
+                           per_replay=dict(launch.per_replay))
+                for name, launch in (("train", self._train_launch),
+                                     ("val", self._eval_launch))
+                if launch is not None}
+
+    def _finalize_device_cache(self) -> None:
+        """End of the warmup epoch (``ingest_overlap``): upload the staged
+        frames and advance the index loader's shuffle by the epoch the
+        warmup loader drew."""
+        pre_staged = sum(int(r.seen.sum()) for r in self._recorders)
+        n_total = sum(r.n for r in self._recorders)
+        t0 = time.time()
+        stacks = [r.finalize(num_workers=self.config.num_workers)
+                  for r in self._recorders]
+        staging = (np.concatenate(stacks, axis=0) if len(stacks) > 1
+                   else stacks[0])
+        self._train_frames = torch.from_numpy(staging).to(self.device)
+        if self._val_shares_train:
+            self._val_frames = self._train_frames
+        self._synchronize()
+        self.upload_secs += time.time() - t0
+        self._warmup_pending = False
+        self._recorders = []
+        if self.config.shuffle:
+            self.train_loader.rng.shuffle(
+                np.arange(len(self.train_loader.dataset)))
+        print(f"device cache finalized from warmup epoch: "
+              f"{pre_staged}/{n_total} frames staged in-epoch")
 
     def _save(self, epoch: int) -> None:
         save_checkpoint(self.logdir, epoch, self.model, self.train_criterion,
@@ -158,22 +419,41 @@ class Trainer:
         losses, weights = [], []
         batch_time = AverageMeter()
         end = time.time()
-        n_val = len(self.val_loader)
-        for batch_idx, (imgs, poses, pad) in enumerate(self.val_loader):
-            imgs, poses = self._put(imgs, poses)
-            loss, _ = self.eval_step(imgs, poses)
-            losses.append(loss)
-            weights.append(imgs.shape[0] - pad)
+        if self._warmup_pending and self._val_frames is None:
+            # warmup epoch, the val split shares the train frames: the
+            # cache is not built yet, so validate from the image loader
+            loader, frames = self._warmup_val_loader, None
+        else:
+            loader, frames = self.val_loader, self._val_frames
+        launch = self._eval_launch if frames is not None else None
+        K = self.steps_per_launch if launch is not None else 1
+        n_val = len(loader)
+        base = 0
+        for chunk in chunked(loader, K):
+            if launch is not None and len(chunk) == K:
+                chunk_losses = list(launch(np.stack([c[0] for c in chunk]),
+                                           np.stack([c[1] for c in chunk]),
+                                           frames))
+            else:
+                chunk_losses = []
+                for x, poses, _ in chunk:
+                    x, poses = self._put(x, poses, index=frames is not None)
+                    chunk_losses.append(
+                        self.eval_step(x, poses, frames=frames)[0])
             batch_time.update(time.time() - end)
+            for j, (x, _, pad) in enumerate(chunk):
+                losses.append(chunk_losses[j])
+                weights.append(x.shape[0] - pad)
+                if (base + j) % self.config.print_freq == 0:
+                    print(
+                        f"Val {self.experiment}: Epoch {epoch}\t"
+                        f"Batch {base + j}/{n_val - 1}\t"
+                        f"Batch time {batch_time.val:.4f} "
+                        f"({batch_time.avg:.4f})\t"
+                        f"Loss {float(chunk_losses[j]):f}"
+                    )
+            base += len(chunk)
             end = time.time()
-            if batch_idx % self.config.print_freq == 0:
-                print(
-                    f"Val {self.experiment}: Epoch {epoch}\t"
-                    f"Batch {batch_idx}/{n_val - 1}\t"
-                    f"Batch time {batch_time.val:.4f} "
-                    f"({batch_time.avg:.4f})\t"
-                    f"Loss {float(loss):f}"
-                )
         w = np.asarray(weights, np.float64)
         host = torch.stack(losses).to("cpu", torch.float64).numpy()
         val_loss = float(np.dot(host, w) / w.sum())
@@ -206,7 +486,17 @@ class Trainer:
         cfg = self.config
         data_time = AverageMeter()
         batch_time = AverageMeter()
-        n_batches = len(self.train_loader)
+        # the warmup epoch (ingest_overlap) trains from the image loader
+        # while the recorders stage frames; the cache is uploaded after it
+        warmup = self._warmup_pending
+        if warmup:
+            loader, frames = self._warmup_loader, None
+        else:
+            loader = self.train_loader
+            frames = self._train_frames if self.device_cache else None
+        launch = self._train_launch if frames is not None else None
+        K = self.steps_per_launch if launch is not None else 1
+        n_batches = len(loader)
         prof = (self._profiler()
                 if self.profile_dir and epoch == self.start_epoch else None)
         end = time.time()
@@ -236,23 +526,34 @@ class Trainer:
                 batch_time=batch_time.avg, **cparams,
             )
 
-        start, images = end, 0
-        for batch_idx, (imgs, poses, _) in enumerate(self.train_loader):
+        start, images, base = end, 0, 0
+        for chunk in chunked(loader, K):
             data_time.update(time.time() - end)
-            if prof is not None and batch_idx == PROFILE_BATCHES:
+            if prof is not None and base >= PROFILE_BATCHES:
                 self._stop_profiler(prof)
                 prof = None
-            images += int(np.prod(poses.shape[:-1]))
-            imgs, poses = self._put(imgs, poses)
-            loss = self.train_step(imgs, poses, seed=cfg.seed)
+            images += sum(math.prod(c[1].shape[:-1]) for c in chunk)
+            count = self.optimizer.count
+            if launch is not None and len(chunk) == K:
+                # K steps in one launch; timing meters are per launch here
+                losses = launch(np.stack([c[0] for c in chunk]),
+                                np.stack([c[1] for c in chunk]), frames)
+                self.optimizer.count = count + K
+            else:
+                losses = []
+                for x, poses, _ in chunk:
+                    x, poses = self._put(x, poses, index=frames is not None)
+                    losses.append(self.train_step(x, poses, seed=cfg.seed,
+                                                  frames=frames))
             batch_time.update(time.time() - end)
-            if batch_idx % cfg.print_freq == 0:
-                emit(batch_idx, loss, self.optimizer.count)
+            for j in range(len(chunk)):
+                if (base + j) % cfg.print_freq == 0:
+                    emit(base + j, losses[j], count + j + 1)
+            base += len(chunk)
             end = time.time()
         if prof is not None:
             self._stop_profiler(prof)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._synchronize()
         secs = time.time() - start
         self.epoch_stats.append(dict(epoch=epoch, secs=secs,
                                      data_secs=data_time.sum,
@@ -260,6 +561,8 @@ class Trainer:
         print(f"Train {self.experiment}: Epoch {epoch} done in {secs:.2f} s, "
               f"{images / max(secs, 1e-9):.1f} images/s, waiting on data "
               f"{data_time.sum:.2f} s")
+        if warmup:
+            self._finalize_device_cache()
 
     def train_val(self) -> None:
         """Run the full schedule (validation / snapshot / train epochs)."""

@@ -9,39 +9,82 @@ Optimizer`. A step runs forward, loss, backward, clip, update and the
 BatchNorm running-statistics update, and returns the loss as a device
 tensor (no host sync).
 
-Dropout draws come from explicit generators seeded by (seed, step,
-microbatch), the counterpart of JAX's ``fold_in(rng, step)`` and
-``fold_in(., k)``; the streams differ from ``jax.random`` (ROADMAP.md
-Queue 3), so parity with JAX injects the keep-masks.
+Dropout keep-masks are a counter-based hash of (seed, update count,
+microbatch, element) computed on the device from the optimizer's
+``step_t`` (:func:`step_keep_mask`): the counterpart of JAX's
+``fold_in(rng, step)`` and ``fold_in(., k)``, the same on every device and
+inside a CUDA graph, where a host-seeded generator could not be captured.
+The stream differs from ``jax.random`` (ROADMAP.md Queue 3), so parity with
+JAX injects the keep-masks.
 
-``remat`` (recompute the forward in the backward) is not ported: it waits
-for ROADMAP.md item 12c, with its trap (``torch.utils.checkpoint`` reruns the
-forward, which would move the BatchNorm running statistics twice).
+With a device frame cache the step takes frame indices and the cache
+(``frames``) and gathers each microbatch's frames on the device before the
+preprocess (:func:`gather_frames`). ``remat=True`` recomputes the model's
+forward in the backward (``torch.utils.checkpoint``); the recompute runs
+BatchNorm on the same batch statistics without moving its running
+statistics a second time (:func:`geomapnet_tpu_torch.models.resnet.
+recomputing_batch_norm`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Callable, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..models.resnet import recomputing_batch_norm
 from .optim import Optimizer
 
-__all__ = ["dropout_generator", "TrainStep", "make_train_step",
-           "make_eval_step"]
+__all__ = ["step_keep_mask", "gather_frames", "TrainStep",
+           "make_train_step", "make_eval_step"]
+
+_M31 = 0x7FFFFFFF
+_MUL = 0x45D9F3B
+_ODD = 0x4F1BBCDD
 
 
-def dropout_generator(seed: int, step: int, micro: int,
-                      device: torch.device) -> torch.Generator:
-    """The dropout generator of microbatch ``micro`` of update ``step`` in a
-    run seeded with ``seed``, on ``device``."""
-    return torch.Generator(device=device).manual_seed(
-        ((seed * 1_000_003 + step) * 1_009 + micro) % 2 ** 63)
+def _mix(x):
+    """A 31-bit integer hash (two multiply-xorshift rounds); ``x`` is an
+    int64 tensor or a Python int in [0, 2^31), and every product stays
+    below 2^63."""
+    x = ((x ^ (x >> 16)) * _MUL) & _M31
+    x = ((x ^ (x >> 16)) * _MUL) & _M31
+    return x ^ (x >> 16)
+
+
+def step_keep_mask(seed: int, step: torch.Tensor, micro: int, shape,
+                   droprate: float) -> torch.Tensor:
+    """The boolean dropout keep-mask of microbatch ``micro`` of the update
+    after ``step`` earlier ones (an int64 tensor, read on its device) in a
+    run seeded with ``seed``: each entry kept with probability
+    ``1 - droprate``, from a hash of (seed, step, micro, element index)."""
+    base = _mix((seed * 1_000_003 + micro * 7_919) & _M31)
+    key = _mix((step & _M31) ^ base)
+    idx = torch.arange(math.prod(shape), dtype=torch.int64,
+                       device=step.device)
+    x = _mix(_mix((idx * _ODD + key) & _M31) ^ key)
+    keep = round((1.0 - droprate) * (1 << 24))
+    return ((x & 0xFFFFFF) < keep).view(shape)
+
+
+def gather_frames(frames: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``frames[idx]``: the cached frames an index batch names, (B[, T])
+    indices -> (B[, T], *frame) on the cache's device."""
+    out = frames.index_select(0, idx.reshape(-1))
+    return out.view(tuple(idx.shape) + tuple(frames.shape[1:]))
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), recomputing_batch_norm()
 
 
 class TrainStep:
-    """``step(images, targets, seed=0, keep_masks=None) -> loss``.
+    """``step(images, targets, seed=0, keep_masks=None, frames=None) ->
+    loss``.
 
     :param preprocess: device-side image function (the uint8 normalize, the
         raw-Bayer pipeline) applied per microbatch without gradient, so with
@@ -50,35 +93,49 @@ class TrainStep:
         forward and backward on each (BatchNorm advancing per microbatch),
         sum the gradients and divide them by ``accum_steps``, average the
         losses, and make one update; the batch must divide evenly
+    :param remat: recompute the forward in the backward instead of keeping
+        its activations
 
-    ``keep_masks`` (one boolean (rows, feat_dim) mask per microbatch, rows =
-    the microbatch's frames) replaces the dropout draws.
+    With ``frames`` (a device frame cache), ``images`` are int frame
+    indices (B[, T]) into it. ``keep_masks`` (one boolean (rows, feat_dim)
+    mask per microbatch, rows = the microbatch's frames) replaces the
+    dropout draws of :func:`step_keep_mask`. The step makes no host sync,
+    so K of them can be captured in one CUDA graph.
     """
 
     def __init__(self, model: nn.Module, criterion: nn.Module,
                  optimizer: Optimizer, preprocess: Callable | None = None,
-                 accum_steps: int = 1):
+                 accum_steps: int = 1, remat: bool = False):
         self.model = model
         self.criterion = criterion
         self.optimizer = optimizer
         self.preprocess = preprocess
         self.accum_steps = int(accum_steps)
+        self.remat = remat
         posenet = getattr(model, "posenet", model)
         self.droprate = float(getattr(posenet, "droprate", 0.0))
+        self.feat_dim = posenet.fc_feat.out_features
 
     def _loss(self, images: torch.Tensor, targets: torch.Tensor,
-              generator: torch.Generator | None,
+              frames: torch.Tensor | None,
               keep_mask: torch.Tensor | None) -> torch.Tensor:
-        if self.preprocess is not None:
-            with torch.no_grad():
+        with torch.no_grad():
+            if frames is not None:
+                images = gather_frames(frames, images)
+            if self.preprocess is not None:
                 images = self.preprocess(images)
-        out = self.model(images, generator, keep_mask)
+        if self.remat:
+            out = checkpoint(self.model, images, None, keep_mask,
+                             use_reentrant=False, preserve_rng_state=False,
+                             context_fn=_remat_contexts)
+        else:
+            out = self.model(images, None, keep_mask)
         return self.criterion(out, targets)
 
     def __call__(self, images: torch.Tensor, targets: torch.Tensor,
                  seed: int = 0,
-                 keep_masks: Sequence[torch.Tensor] | None = None
-                 ) -> torch.Tensor:
+                 keep_masks: Sequence[torch.Tensor] | None = None,
+                 frames: torch.Tensor | None = None) -> torch.Tensor:
         A = self.accum_steps
         batch = images.shape[0]
         if batch % A:
@@ -87,14 +144,15 @@ class TrainStep:
         micro = batch // A
         self.model.train()
         self.optimizer.zero_grad()
-        step = self.optimizer.count
         total = None
         for k, (im, tg) in enumerate(zip(images.split(micro),
                                          targets.split(micro))):
             mask = keep_masks[k] if keep_masks is not None else None
-            gen = (dropout_generator(seed, step, k, images.device)
-                   if mask is None and self.droprate > 0 else None)
-            loss = self._loss(im, tg, gen, mask)
+            if mask is None and self.droprate > 0:
+                mask = step_keep_mask(
+                    seed, self.optimizer.step_t, k,
+                    (math.prod(tg.shape[:-1]), self.feat_dim), self.droprate)
+            loss = self._loss(im, tg, frames, mask)
             loss.backward()
             loss = loss.detach()
             total = loss if total is None else total + loss
@@ -109,21 +167,26 @@ class TrainStep:
 
 def make_train_step(model: nn.Module, criterion: nn.Module,
                     optimizer: Optimizer, preprocess: Callable | None = None,
-                    accum_steps: int = 1) -> TrainStep:
+                    accum_steps: int = 1, remat: bool = False) -> TrainStep:
     """The train step of ``model`` under ``criterion`` (see
     :class:`TrainStep`)."""
-    return TrainStep(model, criterion, optimizer, preprocess, accum_steps)
+    return TrainStep(model, criterion, optimizer, preprocess, accum_steps,
+                     remat)
 
 
 def make_eval_step(model: nn.Module, criterion: nn.Module | None = None,
                    preprocess: Callable | None = None) -> Callable:
-    """``eval_step(images, targets=None) -> (loss, outputs)`` with the model
-    in eval mode (BatchNorm on its running statistics, no dropout) and no
-    gradient; the loss is a zero when there is no criterion or target."""
+    """``eval_step(images, targets=None, frames=None) -> (loss, outputs)``
+    with the model in eval mode (BatchNorm on its running statistics, no
+    dropout) and no gradient; the loss is a zero when there is no criterion
+    or target. With ``frames``, ``images`` are frame indices into it."""
 
-    def eval_step(images: torch.Tensor, targets: torch.Tensor | None = None):
+    def eval_step(images: torch.Tensor, targets: torch.Tensor | None = None,
+                  frames: torch.Tensor | None = None):
         model.eval()
         with torch.no_grad():
+            if frames is not None:
+                images = gather_frames(frames, images)
             if preprocess is not None:
                 images = preprocess(images)
             out = model(images)

@@ -206,6 +206,32 @@ def test_mf_and_loader_copies(kw):
         np.testing.assert_array_equal(pa, pb)
 
 
+@pytest.mark.parametrize("bad", [(), (0, 4)])
+def test_device_cache_copies(bad):
+    """``frame_sources``, ``_ConcatFrames`` (a composite's sources in one
+    index space) and a recorder's finalize over corrupt frames equal the
+    originals."""
+    from geomapnet_tpu.data import device_cache as jdc
+    from geomapnet_tpu_torch.data import device_cache as dc
+
+    a, b = _Frames(5, bad=bad), _Frames(7)
+    comp = type("Composite", (), {"frame_sources": (a, b)})()
+    for ds in (comp, MF(a), a):
+        assert dc.frame_sources(ds) == jdc.frame_sources(ds)
+    ours, theirs = dc._ConcatFrames([a, b]), jdc._ConcatFrames([a, b])
+    assert len(ours) == len(theirs) == 12
+    idx = [11, 0, 5, 4, 6]
+    for x, y in zip(ours.get_images(idx), theirs.get_images(idx)):
+        assert (x is None and y is None) or np.array_equal(x, y)
+    assert np.array_equal(ours.get_image(9), theirs.get_image(9))
+    if not bad:
+        rec, jrec = dc.FrameRecorder(a).install(), \
+            jdc.FrameRecorder(a).install()
+        a.get_image(3)
+        np.testing.assert_array_equal(rec.finalize(num_workers=1),
+                                      jrec.finalize(num_workers=1))
+
+
 def test_loader_stops_its_thread_on_early_exit():
     """A consumer that stops after two batches stops the prefetch thread:
     it fetches at most the batches in flight and is gone at ``close()``."""

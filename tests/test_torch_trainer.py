@@ -11,7 +11,8 @@
 - ``cli.train.main --device cpu`` on ``synth``: ``log.txt``,
   ``metrics.jsonl`` (the JAX Trainer's keys) and ``epoch_*.pth.tar``;
   ``--auto_resume`` restarts at the saved epoch with the weights, loss
-  weights and update count restored bit for bit; the refused flags.
+  weights and update count restored bit for bit; the refused flags (the
+  device-cache flags run: tests/test_torch_train_cache.py).
 - ``cli.eval --weights`` on a port checkpoint and on an upstream
   ``.pth.tar``; ``load_weights`` of trunk-only imports.
 """
@@ -223,10 +224,7 @@ def resumed_datasets():
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--device_cache"], "12c"),
-    (["--ingest_overlap"], "12c"),
-    (["--steps_per_launch", "2"], "12c"),
-    (["--bn_bf16_bwd"], "12c"),
+    (["--device_cache", "shard"], "item 17"),
     (["--native_loader"], "item 15"),
     (["--camera_models_dir", "cams"], "item 14"),
     (["--distributed"], "item 17"),
