@@ -126,6 +126,34 @@ prints no result line):
    prints "device_cache disabled" and trains from the loader. (e) the bf16
    step with and without ``bn_bf16_bwd`` (CUDA events, in turns) after a
    check that its forward and BatchNorm statistics are bit-identical.
+9. MapNet++ fine-tuning and RobotCar's undistortion, at full width
+   (ResNet-34, feat_dim 2048, configs/mapnet++_RobotCar.ini: batch 20, T 3,
+   120 frames a step), on phase 8's scene with a stereo ``vo/vo.csv`` and a
+   ``gps/gps_ins.csv`` written for its test split. (a) One MapNet++ train
+   step on the card and on the CPU from the same weights, batch (2 items of
+   2x3 frames at 64x96) and keep-mask, VO, GPS, and VO with two equal
+   unlabeled frames and mask rows (the NaN cotangents, counted on both
+   devices, that the guard zeroes): the loss within ``TRAIN_TOL`` relative,
+   the criterion's and the heads' gradients within ``TRAIN_TOL``, ``srq``
+   untouched in GPS mode. (b) ``cli.train.main``: a MapNet epoch
+   (``--raw_bayer --device_cache``), then ``--model mapnet++ --checkpoint``
+   of it from the cache in float32 K=1, bf16 K=5 and GPS bf16 K=5, 4 epochs
+   each: train images/s (2T frames an item) over epochs 2-3 (epoch 1
+   captures the graph), loader wait, busy share of a profiled epoch, peak
+   memory, upload seconds; every loss finite, the first
+   snapshot equal to the MapNet weights, ``srq`` exactly at its init after
+   the GPS graphs, K4's launches (replays counted) equal to the steps; then
+   ``cli.eval.main --model mapnet++ --pose_graph`` (configs/
+   pgo_inference_RobotCar.ini) on the fine-tuned weights: finite errors, K4
+   once per batch. (c) One ``KLaunch`` of 5 MapNet++ steps against 5 eager
+   steps under ``cudnn.deterministic``. (d) 7Scenes MapNet++ with DSO VOs
+   (configs/mapnet++_7Scenes.ini, skip 77) from phase 7's checkpoint on a
+   generated scene whose 200-frame test split covers the skip. (e)
+   ``--camera_models_dir`` with a written 960x1280 LUT: the undistortion
+   pipeline on the card against the CPU within 1e-5 with K4 not launched,
+   its CUDA-event time per 60-frame batch beside K4's path and its peak
+   memory at 60 and 120 frames, then one train epoch and one eval through
+   the CLIs.
 
 The line before the last is a JSON object with every kernel's launches on
 its main path, error, times and bound; the last line is
@@ -1264,22 +1292,22 @@ def check_eval_dropout(p4: dict, tmp: Path, config_file: Path) -> None:
 
 
 def train_setup(config, dtype=torch.float32, device="cpu", state=None,
-                preprocess=None, bn_bf16_bwd=False):
-    """A MapNet (ResNet-34, feat_dim 2048) with its criterion (beta and
-    gamma learned), optimizer and train step (through ``preprocess``) on
-    ``device``; the weights from ``state`` when given, else from torch's
-    seeded default generator."""
+                preprocess=None, bn_bf16_bwd=False, model_name="mapnet"):
+    """A MapNet (or ``model_name``; ResNet-34, feat_dim 2048) with its
+    criterion (beta and gamma learned), optimizer and train step (through
+    ``preprocess``) on ``device``; the weights from ``state`` when given,
+    else from torch's seeded default generator."""
     from geomapnet_tpu_torch.cli import builders
     from geomapnet_tpu_torch.train.optim import make_optimizer
     from geomapnet_tpu_torch.train.state import make_train_step
 
     torch.manual_seed(SEED)
-    model, _ = builders.build_model("mapnet", config, trunk="resnet34",
+    model, _ = builders.build_model(model_name, config, trunk="resnet34",
                                     dtype=dtype, bn_bf16_bwd=bn_bf16_bwd)
     if state is not None:
         model.load_state_dict(state)
     model.to(device=device, memory_format=torch.channels_last)
-    crit, _ = builders.build_criteria("mapnet", config, True, True)
+    crit, _ = builders.build_criteria(model_name, config, True, True)
     crit.to(device)
     opt = make_optimizer(config.opt, config.lr, model, crit,
                          config.weight_decay, **config.optim_extras)
@@ -1366,12 +1394,14 @@ def time_train_step(config, card: str) -> dict:
 
 
 def write_train_ini(tmp: Path, config_file: Path, n_epochs: int,
-                    name: str) -> Path:
+                    name: str, **values) -> Path:
     """``config_file`` with ``n_epochs``, validation and a snapshot every
-    epoch and a print line every 5 batches."""
+    epoch, a print line every 5 batches, and the other keys of
+    ``values``."""
     text = config_file.read_text()
     for key, value in (("n_epochs", n_epochs), ("val_freq", 1),
-                       ("snapshot", 1), ("print_freq", 5)):
+                       ("snapshot", 1), ("print_freq", 5),
+                       *values.items()):
         text = "\n".join(f"{key} = {value}" if ln.startswith(f"{key} =")
                          else ln for ln in text.split("\n"))
     path = tmp / f"{name}.ini"
@@ -1393,9 +1423,9 @@ def trace_busy_share(trace: Path) -> tuple[float, float]:
     return busy / 1e3, busy / span
 
 
-def check_train_cli_7scenes(tmp: Path, config_file: Path) -> None:
+def check_train_cli_7scenes(tmp: Path, config_file: Path) -> Path:
     """Phase 7 (c): the train CLI on a generated 7Scenes scene, resume, and
-    the eval CLI on its checkpoint."""
+    the eval CLI on its checkpoint. Returns the final checkpoint."""
     import os
 
     from geomapnet_tpu_torch.cli import eval as cli_eval
@@ -1473,6 +1503,7 @@ def check_train_cli_7scenes(tmp: Path, config_file: Path) -> None:
             raise AssertionError("non-finite errors")
     finally:
         os.chdir(cwd)
+    return logdir / "epoch_002.pth.tar"
 
 
 def check_train_cli_robotcar(root: Path, tmp: Path,
@@ -1592,7 +1623,7 @@ def check_graph_vs_eager(root: Path, config) -> dict:
     K = PHASE8_K
     data = str(root / "deepslam" / "RobotCar")
     assets = str(root / "assets")
-    ds = MF(RobotCar("loop", data, train=True,
+    ds = MF(RobotCar("loop", data, train=True, raw_bayer=True,
                      asset_dir=str(Path(assets) / "RobotCar")),
             steps=config.steps, skip=config.skip, seed=config.seed)
     t0 = time.time()
@@ -1891,7 +1922,8 @@ def check_step_bn_bf16_bwd(root: Path, config, card: str) -> dict:
 
     assets = str(root / "assets")
     ds = MF(RobotCar("loop", str(root / "deepslam" / "RobotCar"),
-                     train=True, asset_dir=str(Path(assets) / "RobotCar")),
+                     train=True, raw_bayer=True,
+                     asset_dir=str(Path(assets) / "RobotCar")),
             steps=config.steps, skip=config.skip, seed=config.seed)
     cache = upload_dataset_frames(ds, torch.device("cuda"))
     idx, poses, _ = next(iter(IndexLoader(ds, config.batch_size)))
@@ -1976,6 +2008,440 @@ def check_cache_7scenes(tmp: Path) -> dict:
         del trainer
         torch.cuda.empty_cache()
     return out
+
+
+PHASE9_EPOCHS = 4         # epochs of each MapNet++ run of phase 9 (b)
+PHASE9_7S_TEST = 200      # test split of phase 9 (d)'s 7Scenes scene
+RC_TEST_SEQ = "2014-06-26-09-24-58"   # the RobotCar fixture's test split
+
+
+def write_robotcar_vo_gps(root: Path, n: int) -> None:
+    """The "real" poses of the RobotCar scene's test sequence: a stereo
+    ``vo/vo.csv`` (one relative motion per frame, keyed by the later
+    frame's timestamp), ``gps/gps_ins.csv`` (every other INS row, the same
+    schema) and both alignments into the ground-truth frame."""
+    import pickle
+
+    from geomapnet_tpu_torch.geometry import euler2mat
+
+    rng = np.random.RandomState(SEED + 90)
+    seq = root / "deepslam" / "RobotCar" / "loop" / RC_TEST_SEQ
+    (seq / "vo").mkdir(exist_ok=True)
+    with open(seq / "vo" / "vo.csv", "w") as f:
+        f.write("source_timestamp,destination_timestamp,x,y,z,roll,pitch,"
+                "yaw\n")
+        for i in range(n):
+            motion = [1.0, 0.5, -0.1, 0, 0, 0.05] + rng.randn(6) * [
+                0.05, 0.05, 0.01, 0.005, 0.005, 0.01]
+            f.write(f"{1000 * (i + 1)},{1000 * i},"
+                    + ",".join(str(v) for v in motion) + "\n")
+    ins = (seq / "gps" / "ins.csv").read_text().splitlines()
+    (seq / "gps" / "gps_ins.csv").write_text("\n".join(ins[:1] + ins[1::2])
+                                             + "\n")
+    assets = root / "assets" / "RobotCar" / "loop" / RC_TEST_SEQ
+    assets.mkdir(parents=True, exist_ok=True)
+    for lib, align in (("stereo", {"R": euler2mat(0, 0, 0.05),
+                                   "t": np.array([0.5, -0.2, 0.0]),
+                                   "s": 1.0}),
+                       ("gps", {"R": np.eye(3), "t": np.zeros(3), "s": 1})):
+        with open(assets / f"{lib}_vo_stats.pkl", "wb") as f:
+            pickle.dump(align, f)
+
+
+def mapnetpp_batch(gps: bool, equal: bool, dropout: float):
+    """Phase 9 (a)'s batch: 2 items of 2x3 frames at 64x96, their pose
+    blocks and a keep-mask; with ``equal`` the first two unlabeled frames
+    of each item are one image with one mask row (equal predictions)."""
+    rng = np.random.RandomState(SEED + 91)
+    x = rng.randn(2, 6, 64, 96, 3).astype(np.float32)
+    y = (rng.randn(2, 6 if gps else 5, 6) * 0.1).astype(np.float32)
+    mask = rng.rand(2, 6, 2048) >= dropout
+    if equal:
+        x[:, 4], mask[:, 4] = x[:, 3], mask[:, 3]
+    return (torch.from_numpy(x), torch.from_numpy(y),
+            torch.from_numpy(mask.reshape(12, 2048)))
+
+
+def check_mapnetpp_card_vs_cpu(pp_config) -> dict:
+    """Phase 9 (a): one MapNet++ train step (ResNet-34, feat_dim 2048,
+    configs/mapnet++_RobotCar.ini, an injected keep-mask) on the card and on
+    the CPU from the same weights and batch, VO and GPS, and VO with equal
+    unlabeled predictions (NaN cotangents, zeroed by the guard)."""
+    import dataclasses
+
+    out = {}
+    for case in ("vo", "gps", "vo_equal"):
+        gps = case == "gps"
+        cfg = dataclasses.replace(pp_config, vo_lib="gps" if gps else "stereo")
+        x, y, mask = mapnetpp_batch(gps, case == "vo_equal", cfg.dropout)
+        res, state = {}, None
+        for dev in ("cpu", "cuda"):
+            model, crit, step = train_setup(cfg, device=dev, state=state,
+                                            model_name="mapnet++")
+            state = state or {k: v.clone()
+                              for k, v in model.state_dict().items()}
+            # the criterion's cotangent on the predictions, before the guard
+            with torch.no_grad():
+                model.train()
+                pred = model(x.to(dev), keep_mask=mask.to(dev))
+            pred.requires_grad_(True)
+            crit(pred, y.to(dev)).backward()
+            nan = int(torch.isnan(pred.grad).sum())
+            equal = bool(torch.equal(pred[:, 3], pred[:, 4]))
+            crit.zero_grad(set_to_none=True)
+            with torch.no_grad():       # the BN statistics moved: restore
+                model.load_state_dict(state)
+            loss = step(x.to(dev), y.to(dev), keep_masks=[mask.to(dev)])
+            pn = model.posenet
+            grads = {f"crit.{k}": p.grad for k, p in crit.named_parameters()
+                     if p.grad is not None}
+            grads.update({f"{m}.{k}": p.grad
+                          for m in ("fc_feat", "fc_xyz", "fc_wpqr")
+                          for k, p in getattr(pn, m).named_parameters()})
+            finite = all(bool(torch.isfinite(p).all())
+                         for p in model.parameters())
+            res[dev] = (float(loss), nan, equal, finite, crit.srq.item(),
+                        {k: v.detach().cpu().double()
+                         for k, v in grads.items()})
+        (l_cpu, nan_c, eq_c, fin_c, srq_c, g_cpu), \
+            (l_gpu, nan_g, eq_g, fin_g, srq_g, g_gpu) = res["cpu"], \
+            res["cuda"]
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        worst = max((float((g_gpu[k] - v).abs().max()
+                           / max(float(v.abs().max()), 1e-30)), k)
+                    for k, v in g_cpu.items())
+        print(f"phase 9 (a) {case}: MapNet++ step card vs CPU (2x6x64x96): "
+              f"loss {l_gpu} vs {l_cpu}, rel {rel}; largest gradient gap "
+              f"{worst[0]} of its tensor's max-abs ({worst[1]}; "
+              f"{len(g_cpu)} tensors; bound {TRAIN_TOL}); NaN cotangents "
+              f"card {nan_g} / CPU {nan_c}, equal unlabeled pair card {eq_g} "
+              f"/ CPU {eq_c}; parameters finite {fin_g} / {fin_c}; srq "
+              f"{srq_g} / {srq_c}")
+        if not (rel <= TRAIN_TOL and worst[0] <= TRAIN_TOL and fin_g
+                and fin_c and g_gpu.keys() == g_cpu.keys()):
+            raise AssertionError(f"{case}: the MapNet++ step on the card "
+                                 f"differs from the CPU's")
+        if case == "vo_equal" and not (nan_g and nan_c and eq_g and eq_c):
+            raise AssertionError("the equal-prediction batch made no NaN")
+        if gps and not (srq_g == srq_c == cfg.gamma
+                        and "crit.srq" not in g_gpu):
+            raise AssertionError("GPS mode moved srq")
+        out[case] = dict(rel=rel, worst=worst[0], nan=nan_g)
+    return out
+
+
+def check_mapnetpp_workflow(root: Path, tmp: Path, config_file: Path,
+                            card: str) -> dict:
+    """Phase 9 (b): MapNet -> MapNet++ -> the PGO eval through the CLIs on
+    phase 8's RobotCar scene (``--raw_bayer --device_cache``)."""
+    from geomapnet_tpu_torch.cli import eval as cli_eval
+    from geomapnet_tpu_torch.ops import cuda_image
+
+    base = ["--dataset", "RobotCar", "--scene", "loop", "--trunk",
+            "resnet34", "--raw_bayer", "--learn_beta", "--learn_gamma",
+            "--data_path", str(root / "deepslam"),
+            "--asset_root", str(root / "assets")]
+    ini = write_train_ini(tmp, config_file, 1, "mapnet_p9")
+    trainer, r = run_train_cli(base + ["--model", "mapnet", "--config_file",
+                                       str(ini), "--device_cache",
+                                       "--suffix", "_p9"], tmp)
+    ckpt = tmp / trainer.logdir / "epoch_001.pth.tar"
+    steps = sum(e["steps"] for e in trainer.epoch_stats)
+    n_val = len(trainer.val_loader)
+    print(f"phase 9 (b) mapnet: 1 epoch of {steps} steps and {n_val} "
+          f"validation batches, wall {r['wall']:.2f} s, K4 {r['k4']}; "
+          f"checkpoint {ckpt.name}")
+    if r["k4"] != steps + n_val:
+        raise AssertionError(f"mapnet: K4 ran {r['k4']} times for {steps} "
+                             f"steps and {n_val} validation batches")
+    del trainer
+    runs = {"mapnet": dict(r, steps=steps)}
+    pp = ROOT / "configs" / "mapnet++_RobotCar.ini"
+    inis = {"vo": write_train_ini(tmp, pp, PHASE9_EPOCHS, "mapnetpp_rc"),
+            "gps": write_train_ini(tmp, pp, PHASE9_EPOCHS, "mapnetpp_rc_gps",
+                                   vo_lib="gps")}
+    for name, mode, extra in (
+            ("f32_k1", "vo", []),
+            ("bf16_k5", "vo", ["--bf16", "--steps_per_launch",
+                               str(PHASE8_K)]),
+            ("gps_bf16_k5", "gps", ["--bf16", "--steps_per_launch",
+                                    str(PHASE8_K)])):
+        trainer, r = run_train_cli(
+            base + ["--model", "mapnet++", "--config_file", str(inis[mode]),
+                    "--checkpoint", str(ckpt), "--device_cache",
+                    "--suffix", f"_{name}"] + extra, tmp)
+        steps = sum(e["steps"] for e in trainer.epoch_stats)
+        logdir = tmp / trainer.logdir
+        records = [json.loads(ln) for ln in
+                   (logdir / "metrics.jsonl").read_text().splitlines()]
+        losses = [x["loss"] for x in records]
+        if not (losses and np.isfinite(losses).all()):
+            raise AssertionError(f"{name}: non-finite losses {losses}")
+        if r["k4"] != steps:     # do_val = no: one launch a step
+            raise AssertionError(f"{name}: K4 ran {r['k4']} times for "
+                                 f"{steps} steps")
+        start = torch.load(logdir / "epoch_000.pth.tar", map_location="cpu",
+                           weights_only=False)["model_state_dict"]
+        mapnet = torch.load(ckpt, map_location="cpu",
+                            weights_only=False)["model_state_dict"]
+        if not all(torch.equal(v, start[k]) for k, v in mapnet.items()):
+            raise AssertionError(f"{name}: did not start from the MapNet "
+                                 f"checkpoint")
+        srq = trainer.train_criterion.srq.item()
+        if mode == "gps" and srq != -3.0:
+            raise AssertionError(f"{name}: srq moved to {srq} in GPS mode")
+        # epoch 1 captures the K-step graph: steady from epoch 2
+        r.update(steady(trainer, first=2), upload_secs=trainer.upload_secs,
+                 steps=steps, graphs=trainer.graph_launches(), srq=srq,
+                 frames=int(trainer._train_frames.shape[0]),
+                 epoch_secs=[round(e["secs"], 3)
+                             for e in trainer.epoch_stats])
+        r["busy_share"] = profile_epoch(trainer, tmp, name)
+        print(f"phase 9 (b) {name} ({card}): MapNet++ train "
+              f"{r['images_per_s']:.1f} images/s (2T = 6 frames an item, "
+              f"{r['step_ms']:.2f} ms a step of "
+              f"{6 * trainer.config.batch_size} frames) over epochs 2-"
+              f"{PHASE9_EPOCHS - 1} (epoch seconds {r['epoch_secs']}), "
+              f"loader wait {r['data_share']:.4f} of the "
+              f"train time, card busy {r['busy_share']:.3f} of a profiled "
+              f"epoch, peak memory {r['peak_gib']:.3f} GiB (cache of "
+              f"{r['frames']} mosaics included), upload "
+              f"{r['upload_secs']:.2f} s, wall {r['wall']:.2f} s; K4 ran "
+              f"{r['k4']} times = {steps} steps (counted at launch or "
+              f"capture {r['k4_counted']}, graphs {r['graphs']}); losses "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; srq {srq}")
+        runs[name] = dict(r, final=logdir / f"epoch_{PHASE9_EPOCHS:03d}"
+                                            f".pth.tar")
+        del trainer
+        torch.cuda.empty_cache()
+
+    # the fine-tuned weights through MapNet+PGO on the test split
+    cuda_image.launches = 0
+    t0 = time.time()
+    res = cli_eval.main([
+        "--dataset", "RobotCar", "--scene", "loop", "--model", "mapnet++",
+        "--trunk", "resnet34", "--raw_bayer", "--val", "--pose_graph",
+        "--weights", str(runs["f32_k1"]["final"]), "--batch_size", "20",
+        "--config_file", str(ROOT / "configs" / "pgo_inference_RobotCar.ini"),
+        "--data_path", str(root / "deepslam"),
+        "--asset_root", str(root / "assets")])
+    wall = time.time() - t0
+    launches = cuda_image.launches
+    n_batches = -(-res["pred_poses"].shape[0] // 20)
+    errors = [res[k] for k in ("median_t", "mean_t", "median_q", "mean_q")]
+    print(f"phase 9 (b) eval --model mapnet++ --pose_graph "
+          f"(pgo_inference_RobotCar.ini, 7-frame windows, stereo VO): "
+          f"{res['pred_poses'].shape[0]} tuples, wall {wall:.2f} s, "
+          f"{res['images_per_sec']:.1f} images/s, PGO {res['pgo_secs']:.2f} "
+          f"s; errors {errors}; K4 launches {launches} for {n_batches} "
+          f"batches")
+    if not np.isfinite(errors).all():
+        raise AssertionError("non-finite errors after MapNet++ + PGO")
+    if launches != n_batches:
+        raise AssertionError(f"K4 ran {launches} times for {n_batches} eval "
+                             f"batches")
+    runs["eval"] = dict(k4=launches, wall=wall, errors=errors)
+    return runs
+
+
+def check_mapnetpp_graph(root: Path, pp_config) -> dict:
+    """Phase 9 (c): one ``KLaunch`` of K MapNet++ steps (a CUDA graph)
+    against K eager steps from the same state and batches, on the RobotCar
+    cache of both splits at full width (float32, dropout drawn on the card
+    from the update count), under ``cudnn.deterministic``."""
+    from geomapnet_tpu_torch.cli import builders
+    from geomapnet_tpu_torch.data.device_cache import (
+        IndexLoader,
+        upload_dataset_frames,
+    )
+    from geomapnet_tpu_torch.train.loop import KLaunch
+
+    K = PHASE8_K
+    assets = str(root / "assets")
+    ds, _ = builders.build_datasets(
+        "mapnet++", "RobotCar", "loop", str(root / "deepslam" / "RobotCar"),
+        pp_config, asset_root=assets, raw_bayer=True)
+    cache = upload_dataset_frames(ds, torch.device("cuda"))
+    loader = IndexLoader(ds, pp_config.batch_size, shuffle=True,
+                         seed=pp_config.seed)
+    batches = []
+    while len(batches) < 2 * K:     # an epoch may hold fewer than 2K
+        batches += [(idx, poses) for idx, poses, _ in loader]
+    batches = batches[:2 * K]
+    idx_k = np.stack([b[0] for b in batches[K:]])
+    poses_k = np.stack([b[1] for b in batches[K:]])
+    torch.backends.cudnn.deterministic = True
+    try:
+        pre = builders.build_raw_device_preprocess("loop", assets)
+        model, crit, step = train_setup(pp_config, device="cuda",
+                                        preprocess=pre,
+                                        model_name="mapnet++")
+        launch = KLaunch(lambda i, p, f: step(i, p, seed=SEED, frames=f), K,
+                         torch.device("cuda"))
+        launch(np.stack([b[0] for b in batches[:K]]),
+               np.stack([b[1] for b in batches[:K]]), cache)
+        tensors = cache_state_tensors(model, crit, step)
+        start = {k: t.detach().clone() for k, t in tensors.items()}
+        g_losses = launch(idx_k, poses_k, cache)
+        graph_state = {k: t.detach().clone() for k, t in tensors.items()}
+        with torch.no_grad():
+            for k, t in tensors.items():
+                t.copy_(start[k])
+        e_losses = torch.stack([
+            step(torch.from_numpy(i).cuda(), torch.from_numpy(p).cuda(),
+                 seed=SEED, frames=cache) for i, p in zip(idx_k, poses_k)])
+        torch.cuda.synchronize()
+        rel = float(((g_losses - e_losses).abs() / e_losses.abs()).max())
+        worst, where, bitwise = state_gap(graph_state,
+                                          cache_state_tensors(model, crit,
+                                                              step))
+        bitwise = bitwise and torch.equal(g_losses, e_losses)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    per = launch.per_replay["demosaic_half_normalize"]
+    print(f"phase 9 (c): MapNet++ K={K} graph vs {K} eager steps "
+          f"({idx_k.shape[1]} items x {idx_k.shape[2]} frames, cache of "
+          f"{cache.shape[0]} mosaics): losses rel {rel}, largest state gap "
+          f"{worst} ({where}; {len(tensors)} tensors), bit-equal {bitwise}; "
+          f"K4 per replay {per}; losses "
+          f"{[round(float(v), 4) for v in g_losses]}")
+    if not (rel <= TRAIN_TOL and worst <= TRAIN_TOL and per == K):
+        raise AssertionError("the MapNet++ K-step graph differs from K "
+                             "eager steps")
+    del cache, model, crit, step, launch
+    torch.cuda.empty_cache()
+    return dict(rel=rel, worst=worst, bitwise=bitwise)
+
+
+def check_mapnetpp_7scenes(tmp: Path, mapnet_ckpt: Path) -> dict:
+    """Phase 9 (d): 7Scenes MapNet++ with DSO targets (configs/
+    mapnet++_7Scenes.ini: skip 77, no duplicates) from phase 7's MapNet
+    checkpoint, on a generated scene whose test split covers the skip."""
+    root = write_7scenes_scene(tmp / "7scenes_pp", PHASE9_7S_TEST,
+                               n_train=100)
+    write_dso_vo(root, PHASE9_7S_TEST)
+    ini = write_train_ini(tmp, ROOT / "configs" / "mapnet++_7Scenes.ini", 1,
+                          "mapnetpp_7s")
+    trainer, r = run_train_cli([
+        "--dataset", "7Scenes", "--scene", "heads", "--model", "mapnet++",
+        "--trunk", "resnet34", "--config_file", str(ini), "--checkpoint",
+        str(mapnet_ckpt), "--device_cache", "--learn_beta", "--learn_gamma",
+        "--data_path", str(root / "deepslam"),
+        "--asset_root", str(root / "assets")], tmp)
+    ds = trainer.train_loader.dataset
+    losses = [json.loads(ln)["loss"] for ln in
+              (tmp / trainer.logdir / "metrics.jsonl").read_text()
+              .splitlines()]
+    st = trainer.epoch_stats[-1]
+    idx = np.stack([ds.get_indices(i) for i in range(len(ds))])
+    unlab = idx[:, 3:] - len(ds.train_set.dset)
+    distinct = bool((np.diff(unlab, axis=1) == 77).all())
+    print(f"phase 9 (d) 7Scenes MapNet++ (DSO, skip 77): {len(ds)} items, "
+          f"{st['steps']} steps, device cache {trainer.device_cache} "
+          f"({trainer._train_frames.shape[0]} frames, upload "
+          f"{trainer.upload_secs:.2f} s), {st['images'] / st['secs']:.1f} "
+          f"train images/s, unlabeled frames 77 apart (no repeats) "
+          f"{distinct}; losses {losses}")
+    if not (st["steps"] >= 1 and losses and np.isfinite(losses).all()
+            and distinct and trainer.device_cache):
+        raise AssertionError("7Scenes MapNet++ failed")
+    return dict(st, upload_secs=trainer.upload_secs)
+
+
+def write_camera_lut(d: Path, h: int = 960, w: int = 1280) -> Path:
+    """The stereo centre camera's model files (the SDK's layout): the
+    intrinsics and a distortion LUT of smooth barrel distortion (each
+    output pixel samples a point up to 4% nearer the centre) with the
+    seed's sub-pixel noise."""
+    d.mkdir(parents=True, exist_ok=True)
+    np.savetxt(d / "stereo_narrow_left.txt",
+               np.asarray([[983.0, 983.0, w / 2, h / 2]]))
+    rng = np.random.RandomState(SEED + 92)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    cy, cx = (h - 1) / 2, (w - 1) / 2
+    k = 1.0 - 0.08 * (((yy - cy) / h) ** 2 + ((xx - cx) / w) ** 2)
+    lut = np.stack([(cx + (xx - cx) * k + rng.uniform(-0.2, 0.2, (h, w)))
+                    .ravel(),
+                    (cy + (yy - cy) * k + rng.uniform(-0.2, 0.2, (h, w)))
+                    .ravel()])
+    lut.tofile(d / "stereo_narrow_left_distortion_lut.bin")
+    return d
+
+
+def check_camera_models(root: Path, tmp: Path, config_file: Path,
+                        card: str) -> dict:
+    """Phase 9 (e): ``--camera_models_dir``: the undistortion pipeline
+    (full demosaic, LUT undistortion, resize, normalize as torch ops) on
+    the card against the CPU, its time per 60-frame batch beside K4's path,
+    and one train epoch and one eval through the CLIs; K4 never runs."""
+    from geomapnet_tpu_torch.cli import builders
+    from geomapnet_tpu_torch.cli import eval as cli_eval
+    from geomapnet_tpu_torch.ops import cuda_image
+
+    models = write_camera_lut(tmp / "camera_models")
+    assets = str(root / "assets")
+    undist = builders.build_raw_device_preprocess(
+        "loop", assets, camera_models_dir=str(models))
+    plain = builders.build_raw_device_preprocess("loop", assets)
+    raw = torch.from_numpy(np.random.RandomState(SEED + 93).randint(
+        0, 256, (MAIN_FRAMES, 960, 1280), dtype=np.uint8))
+    cuda_image.launches = 0
+    cpu = undist(raw[:4])
+    gpu = undist(raw[:4].cuda()).cpu()
+    gap = float((gpu - cpu).abs().max())
+    if cuda_image.launches:
+        raise AssertionError("K4 ran under --camera_models_dir")
+    raw_gpu = raw.cuda()
+    ms = cuda_ms(lambda: undist(raw_gpu), reps=5, groups=3)
+    k4_ms = cuda_ms(lambda: plain(raw_gpu), reps=5, groups=3)
+    peaks = {}
+    for n in (MAIN_FRAMES, 2 * MAIN_FRAMES):
+        batch = raw_gpu.repeat(2, 1, 1)[:n]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        undist(batch)
+        torch.cuda.synchronize()
+        peaks[n] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        del batch
+    print(f"phase 9 (e) ({card}): undistortion pipeline card vs CPU (4 "
+          f"frames): max abs gap {gap} (bound 1e-5); {MAIN_FRAMES} frames "
+          f"960x1280 -> 256x341: {ms:.3f} ms (CUDA events) against "
+          f"{k4_ms:.3f} ms through K4 and the matmul resize; peak memory "
+          f"above the input {peaks[MAIN_FRAMES]:.3f} GiB for "
+          f"{MAIN_FRAMES} frames, {peaks[2 * MAIN_FRAMES]:.3f} GiB for "
+          f"{2 * MAIN_FRAMES}")
+    if gap > 1e-5:
+        raise AssertionError("the undistortion pipeline on the card differs "
+                             "from the CPU's")
+    del raw_gpu
+    torch.cuda.empty_cache()
+    ini = write_train_ini(tmp, config_file, 1, "mapnet_cam")
+    argv = ["--dataset", "RobotCar", "--scene", "loop", "--model", "mapnet",
+            "--trunk", "resnet34", "--raw_bayer", "--camera_models_dir",
+            str(models), "--config_file", str(ini),
+            "--data_path", str(root / "deepslam"), "--asset_root", assets]
+    trainer, r = run_train_cli(argv + ["--device_cache"], tmp)
+    st = trainer.epoch_stats[-1]
+    losses = [json.loads(ln)["loss"] for ln in
+              (tmp / trainer.logdir / "metrics.jsonl").read_text()
+              .splitlines()]
+    cuda_image.launches = 0
+    res = cli_eval.main(argv + [
+        "--val", "--batch_size", "20",
+        "--weights", str(tmp / trainer.logdir / "epoch_001.pth.tar")])
+    errors = [res[k] for k in ("median_t", "mean_t", "median_q", "mean_q")]
+    print(f"phase 9 (e) CLI --camera_models_dir: train "
+          f"{st['images'] / st['secs']:.1f} images/s ({st['steps']} steps), "
+          f"peak memory {r['peak_gib']:.3f} GiB, K4 {r['k4']}; eval "
+          f"{res['images_per_sec']:.1f} images/s, errors {errors}, K4 "
+          f"{cuda_image.launches}")
+    if r["k4"] or cuda_image.launches or not (
+            np.isfinite(losses).all() and np.isfinite(errors).all()):
+        raise AssertionError("--camera_models_dir run failed")
+    return dict(ms=ms, k4_ms=k4_ms, gap=gap, peaks=peaks,
+                train_images_per_s=st["images"] / st["secs"])
 
 
 def main() -> int:
@@ -2122,7 +2588,7 @@ def main() -> int:
         t0 = time.time()
         check_train_card_vs_cpu(config)
         train = time_train_step(config, card)
-        check_train_cli_7scenes(tmp, config_file)
+        mapnet_7s = check_train_cli_7scenes(tmp, config_file)
         train_k4 = check_train_cli_robotcar(root, tmp, config_file)
         print(f"phase 7: {time.time() - t0:.2f} s; train images/s "
               f"{ {k: round(v['images_per_s'], 1) for k, v in train.items()} }"
@@ -2145,6 +2611,25 @@ def main() -> int:
               f"{bnbwd}; 7Scenes runs {sorted(seven)}; K4 launches in (b) "
               f"{cache_k4}")
 
+        # phase 9: MapNet++ fine-tuning, and RobotCar's undistortion
+        t0 = time.time()
+        pp_config = parse_ini(ROOT / "configs" / "mapnet++_RobotCar.ini")
+        write_robotcar_vo_gps(root, PHASE8_FRAMES)
+        pp_step = check_mapnetpp_card_vs_cpu(pp_config)
+        pp_runs = check_mapnetpp_workflow(root, tmp, config_file, card)
+        pp_graph = check_mapnetpp_graph(root, pp_config)
+        pp_7s = check_mapnetpp_7scenes(tmp, mapnet_7s)
+        undist = check_camera_models(root, tmp, config_file, card)
+        pp_k4 = sum(r["k4"] for r in pp_runs.values())
+        rates = {k: round(pp_runs[k]["images_per_s"], 1)
+                 for k in ("f32_k1", "bf16_k5", "gps_bf16_k5")}
+        print(f"phase 9: {time.time() - t0:.2f} s; MapNet++ train images/s "
+              f"{rates} ({card}); card vs CPU {pp_step}; graph vs eager "
+              f"{pp_graph}; 7Scenes DSO {pp_7s['images'] / pp_7s['secs']:.1f}"
+              f" images/s; undistortion pipeline {undist['ms']:.3f} ms vs "
+              f"K4 path {undist['k4_ms']:.3f} ms a {MAIN_FRAMES}-frame batch;"
+              f" K4 launches in (b) {pp_k4}")
+
     f32 = kernel["float32"]
     # K4's bound: each mosaic byte read once, each float32 output written
     # once (60x960x1280 uint8 -> 60x3x480x640 float32)
@@ -2156,7 +2641,7 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": launches + cache_k4,
+        "launches": launches + cache_k4 + pp_k4,
         "max_abs_err": max(k["max_abs_err"] for k in kernel.values()),
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],

@@ -2,10 +2,10 @@
 pipeline, datasets, experiment name, device.
 
 The PyTorch counterpart of :mod:`geomapnet_tpu.cli.builders`: 7Scenes, the
-synthetic scene and RobotCar raw mosaics, each with its ground-truth or VO
-("real") poses, for PoseNet and MapNet. RobotCar's processed RGB frames and
-MapNet++ are not ported yet and raise ``NotImplementedError`` naming
-ROADMAP.md.
+synthetic scene and RobotCar (processed RGB frames, or raw mosaics with the
+device demosaic and, given camera models, the device undistortion), each
+with its ground-truth or VO ("real") poses, for PoseNet, MapNet and
+MapNet++.
 """
 
 from __future__ import annotations
@@ -15,9 +15,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..data.composite import MF
+from ..data.composite import MF, MFOnline
 from ..data.transforms import ImageTransform, Normalize, std_from_stats
-from ..losses.criterion import MapNetCriterion, PoseNetCriterion
+from ..data.vo_np import vos_logq_np
+from ..losses.criterion import (
+    MapNetCriterion,
+    MapNetOnlineCriterion,
+    PoseNetCriterion,
+)
 from ..models.posenet import MapNet, PoseNet
 from ..models.resnet import resnet18, resnet34, resnet50
 from .config import ExperimentConfig
@@ -34,9 +39,6 @@ __all__ = [
     "pick_device",
 ]
 
-MAPNETPP_TODO = ("MapNet++ training is not ported yet (ROADMAP.md, Queue 1 "
-                 "item 13)")
-
 TRUNKS = {"resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50}
 
 
@@ -46,13 +48,15 @@ def build_model(model_name: str, config: ExperimentConfig,
     """Returns (module, is_tuple_model): a PoseNet, or a MapNet around one,
     with the ``trunk`` feature extractor, ``config.dropout`` and compute
     ``dtype`` (float32 parameters either way); ``bn_bf16_bwd`` gives the
-    trunk's BatchNorms the bfloat16 backward (forward unchanged)."""
+    trunk's BatchNorms the bfloat16 backward (forward unchanged). MapNet++
+    guards its log-q head against NaN gradients (``filter_nans``)."""
     if trunk not in TRUNKS:
         raise ValueError(
             f"unknown trunk {trunk!r}; pick from {sorted(TRUNKS)}")
     posenet = PoseNet(
         feature_extractor=TRUNKS[trunk](dtype, bn_bf16_bwd=bn_bf16_bwd),
-        droprate=config.dropout, dtype=dtype)
+        droprate=config.dropout, dtype=dtype,
+        filter_nans=model_name == "mapnet++")
     if model_name == "posenet":
         return posenet, False
     if model_name in ("mapnet", "mapnet++"):
@@ -75,7 +79,11 @@ def build_criteria(model_name: str, config: ExperimentConfig,
                                 learn_gamma=learn_gamma),
                 MapNetCriterion())
     if model_name == "mapnet++":
-        raise NotImplementedError(MAPNETPP_TODO)
+        gps = config.vo_lib == "gps"
+        return (MapNetOnlineCriterion(sax=0.0, saq=config.beta, srx=0.0,
+                                      srq=config.gamma, learn_beta=learn_beta,
+                                      learn_gamma=learn_gamma, gps_mode=gps),
+                MapNetOnlineCriterion(gps_mode=gps))
     raise ValueError(f"unknown model {model_name}")
 
 
@@ -132,20 +140,34 @@ def build_raw_device_preprocess(
     dtype=torch.float32,
     raw_size: tuple[int, int] = (960, 1280),
     resize: int = 256,
+    camera_models_dir: str | None = None,
 ):
     """RobotCar raw-mosaic pipeline: the host ships untouched Bayer uint8 and
-    demosaic -> resize -> normalize run on the device
-    (:func:`geomapnet_tpu_torch.ops.image.make_device_pipeline`, through the
-    CUDA demosaic kernel on a card). Pair with
-    :class:`geomapnet_tpu_torch.data.robotcar.RobotCar`."""
-    from ..ops.image import make_device_pipeline, resize_shorter_side_shape
+    demosaic -> [undistort] -> resize -> normalize run on the device
+    (:func:`geomapnet_tpu_torch.ops.image.make_device_pipeline`). Without
+    camera models a mosaic goes through the CUDA demosaic kernel on a card;
+    with ``camera_models_dir`` (the stereo centre camera's LUT) the full
+    demosaic and the LUT undistortion run as torch ops. Pair with
+    :class:`geomapnet_tpu_torch.data.robotcar.RobotCar` (``raw_bayer``)."""
+    from ..ops.image import (
+        make_device_pipeline,
+        precompute_undistort_maps,
+        resize_shorter_side_shape,
+    )
 
     stats = np.loadtxt(Path(asset_root) / "RobotCar" / scene / "stats.txt")
     mean, std = std_from_stats(stats)
+    maps = None
+    if camera_models_dir:
+        from ..data.robotcar_sdk import CameraModel
+
+        cam = CameraModel(camera_models_dir, Path("stereo") / "centre")
+        maps = precompute_undistort_maps(cam.lut, *raw_size)
     return make_device_pipeline(
         mean=tuple(float(m) for m in mean),
         std=tuple(float(s) for s in std),
         resize_to=resize_shorter_side_shape(*raw_size, resize),
+        undistort_maps=maps,
         bayer=True,
         dtype=dtype,
     )
@@ -212,16 +234,14 @@ def _build_frame_dataset(
             asset_dir=str(Path(asset_root) / "7Scenes"),
         )
     if dataset == "RobotCar":
-        if not (raw_bayer or skip_images):
-            raise NotImplementedError(
-                "RobotCar's processed-RGB frames are not ported yet "
-                "(ROADMAP.md, Queue 1); use the raw Bayer mosaics")
         from ..data.robotcar import RobotCar
 
         return RobotCar(
             scene=scene, data_path=data_path, train=train,
-            asset_dir=str(Path(asset_root) / "RobotCar"), real=real,
-            skip_images=skip_images, vo_lib=vo_lib or "stereo",
+            transform=None if raw_bayer else transform, seed=config.seed,
+            real=real, skip_images=skip_images, vo_lib=vo_lib or "stereo",
+            asset_dir=str(Path(asset_root) / "RobotCar"),
+            raw_bayer=raw_bayer,
         )
     raise ValueError(f"unknown dataset {dataset}")
 
@@ -239,29 +259,42 @@ def build_datasets(
 ):
     """(train_set, val_set) for a model family (upstream
     scripts/train.py:131-156); ``cache_gb`` is a per-split decoded-frame RAM
-    budget (see :func:`build_frame_dataset`)."""
-    if model_name == "mapnet++":
-        raise NotImplementedError(MAPNETPP_TODO)
-    if model_name not in ("posenet", "mapnet"):
+    budget (see :func:`build_frame_dataset`).
+
+    MapNet++ trains on :class:`~geomapnet_tpu_torch.data.composite.MFOnline`
+    items and validates on nothing (``val_set`` None): the labeled train
+    split, and the test split as the unlabeled one, built with the *train*
+    transform and its ``config.vo_lib`` poses (VOs, or GPS positions when
+    ``vo_lib`` is "gps"), whose absolute targets come from the ground truth
+    of the same split in VO mode."""
+    if model_name not in ("posenet", "mapnet", "mapnet++"):
         raise ValueError(f"unknown model {model_name}")
     tf_train = build_transform(dataset, scene, config, asset_root, train=True,
                                seed=config.seed, keep_uint8=keep_uint8)
     tf_val = build_transform(dataset, scene, config, asset_root, train=False,
                              seed=config.seed, keep_uint8=keep_uint8)
 
-    def frames(train, transform, real=False):
+    def frames(train, transform, real=False, skip_images=False, vo_lib=None):
         return build_frame_dataset(
             dataset, scene, data_path, train, config, transform=transform,
-            real=real, asset_root=asset_root, raw_bayer=raw_bayer,
-            cache_gb=cache_gb,
+            real=real, skip_images=skip_images, asset_root=asset_root,
+            vo_lib=vo_lib, raw_bayer=raw_bayer, cache_gb=cache_gb,
         )
 
     if model_name == "posenet":
         return frames(True, tf_train), frames(False, tf_val)
     mf_kwargs = dict(steps=config.steps, skip=config.skip,
                      variable_skip=config.variable_skip, seed=config.seed)
-    return (MF(frames(True, tf_train, real=config.real), **mf_kwargs),
-            MF(frames(False, tf_val, real=config.real), **mf_kwargs))
+    if model_name == "mapnet":
+        return (MF(frames(True, tf_train, real=config.real), **mf_kwargs),
+                MF(frames(False, tf_val, real=config.real), **mf_kwargs))
+    gps = config.vo_lib == "gps"
+    train_mf = MF(frames(True, tf_train), **mf_kwargs)
+    unlab = frames(False, tf_train, real=True, vo_lib=config.vo_lib)
+    gt_for_unlab = None if gps else frames(False, tf_val, skip_images=True)
+    val_mf = MF(unlab, include_vos=not gps, real=not gps, no_duplicates=True,
+                gt_dataset=gt_for_unlab, vo_func=vos_logq_np, **mf_kwargs)
+    return MFOnline(train_mf, val_mf, gps_mode=gps), None
 
 
 def experiment_name(dataset, scene, model, config_file, learn_beta,

@@ -5,7 +5,7 @@ scripts/eval.py): per-frame L2 translation error and quaternion
 angular error, median and mean, over the middle frame of each tuple, with
 translations un-normalized by the scene's ``pose_stats.txt``.
 
-Ported so far, with PoseNet or MapNet weights from a port checkpoint
+Ported so far, with PoseNet, MapNet or MapNet++ weights from a port checkpoint
 (``epoch_*.pth.tar`` of :mod:`geomapnet_tpu_torch.cli.train`), an upstream
 ``.pth.tar`` or a Flax ``.npz``, in float32 or (``--bf16``) bfloat16:
 
@@ -18,7 +18,9 @@ Ported so far, with PoseNet or MapNet weights from a port checkpoint
         --model mapnet --config_file configs/mapnet.ini --weights w.npz \\
         --val --device_cache --data_path <root> --asset_root <assets>
 
-- RobotCar raw-Bayer mosaics through the device pipeline (``--raw_bayer``).
+- RobotCar: the processed RGB frames as 7Scenes' are, or the raw-Bayer
+  mosaics through the device pipeline (``--raw_bayer``; undistorted on the
+  device with ``--camera_models_dir``).
 
 - The serving trunks of :mod:`geomapnet_tpu_torch.models.quant`:
   ``--fold_bn`` (BatchNorm folded into the convs, the model's dtype) and
@@ -500,8 +502,12 @@ def main(argv=None) -> dict:
     parser.add_argument(
         "--raw_bayer", action="store_true",
         help="RobotCar raw Bayer mosaics + on-device "
-        "demosaic/resize/normalize (the only RobotCar input ported so far)",
+        "demosaic/[undistort]/resize/normalize",
     )
+    parser.add_argument(
+        "--camera_models_dir", type=str, default=None,
+        help="RobotCar camera model dir for on-device undistortion with "
+        "--raw_bayer (omit to skip undistortion)")
     parser.add_argument(
         "--cache_frames", type=float, default=0.0, metavar="GB",
         help="decoded-frame RAM cache: repeated passes over a split decode "
@@ -547,9 +553,6 @@ def main(argv=None) -> dict:
     for flag, where in _UNPORTED_FLAGS.items():
         if getattr(args, flag):
             parser.error(f"--{flag} is not ported yet (ROADMAP.md, {where})")
-    if args.dataset == "RobotCar" and not args.raw_bayer:
-        parser.error("only --raw_bayer RobotCar input is ported so far "
-                     "(ROADMAP.md, Queue 1)")
     if args.raw_bayer and args.dataset != "RobotCar":
         parser.error("--raw_bayer requires --dataset RobotCar")
     if Path(args.weights).suffix not in (".npz", ".tar", ".pth"):
@@ -581,8 +584,9 @@ def main(argv=None) -> dict:
         else f"{args.data_path}/{args.dataset}"
     )
     if args.raw_bayer:
-        preprocess = build_raw_device_preprocess(args.scene, args.asset_root,
-                                                 dtype=dtype)
+        preprocess = build_raw_device_preprocess(
+            args.scene, args.asset_root, dtype=dtype,
+            camera_models_dir=args.camera_models_dir)
     elif args.host_normalize:
         preprocess = None
     else:

@@ -1,12 +1,21 @@
-"""Training CLI for PoseNet and MapNet.
+"""Training CLI for PoseNet, MapNet and MapNet++.
 
 The PyTorch counterpart of :mod:`geomapnet_tpu.cli.train` (upstream
 scripts/train.py): the same flags, ``.ini`` semantics and experiment naming,
-on one device, on the loader path::
+on one device::
 
     python -m geomapnet_tpu_torch.cli.train --dataset 7Scenes --scene heads \\
         --config_file configs/mapnet.ini --model mapnet \\
         --learn_beta --learn_gamma --data_path <root> --asset_root <assets>
+
+MapNet++ fine-tunes a trained MapNet on the test split's VOs (or GPS
+positions, ``vo_lib = gps``) beside the labeled train split, from the
+MapNet checkpoint's weights (``--checkpoint`` without ``--resume_optim``)::
+
+    python -m geomapnet_tpu_torch.cli.train --dataset RobotCar --scene loop \\
+        --model mapnet++ --config_file configs/mapnet++_RobotCar.ini \\
+        --checkpoint logs/<mapnet experiment>/epoch_300.pth.tar \\
+        --raw_bayer --device_cache --learn_beta --learn_gamma ...
 
 Checkpoints ``logs/<experiment>/epoch_*.pth.tar`` load into
 ``geomapnet_tpu_torch.cli.eval --weights``. ``--device`` defaults to the
@@ -17,7 +26,10 @@ the CPU. TF32 stays off (float32 means float32, as in eval).
 once, batches gathered on the device by index), ``--ingest_overlap``
 overlaps its upload with the first epoch, ``--steps_per_launch K`` runs K
 steps per launch (a CUDA graph on the card) and ``--bn_bf16_bwd`` gives
-BatchNorm the bfloat16 backward, each with the JAX CLI's meaning.
+BatchNorm the bfloat16 backward, each with the JAX CLI's meaning. RobotCar
+trains on its processed RGB frames, or with ``--raw_bayer`` on the raw
+mosaics, demosaiced on the device (and undistorted there with
+``--camera_models_dir``).
 
 Flags of the JAX CLI that the port does not run yet are refused, each
 naming the ROADMAP.md item that ports it (``--device_cache shard`` among
@@ -61,7 +73,8 @@ _UNPORTED_FLAGS = {
 def main(argv=None) -> Trainer:
     """Parse ``argv``, train, and return the :class:`Trainer`."""
     parser = argparse.ArgumentParser(
-        description="Training script for PoseNet and MapNet (PyTorch)"
+        description="Training script for PoseNet, MapNet and MapNet++ "
+        "(PyTorch)"
     )
     parser.add_argument("--dataset", type=str, required=True,
                         choices=("7Scenes", "RobotCar", "synth"))
@@ -102,11 +115,12 @@ def main(argv=None) -> Trainer:
         "default device-side normalize (uint8 transfer, 4x smaller)")
     parser.add_argument(
         "--raw_bayer", action="store_true",
-        help="RobotCar only: raw Bayer mosaics, demosaic/resize/normalize on "
-        "the device (the only RobotCar input ported so far)")
+        help="RobotCar only: raw Bayer mosaics, demosaic/[undistort]/resize/"
+        "normalize on the device (no offline image processing)")
     parser.add_argument(
         "--camera_models_dir", type=str, default=None,
-        help="not ported yet (ROADMAP.md, Queue 1, item 14)")
+        help="RobotCar camera model dir for on-device undistortion with "
+        "--raw_bayer (omit to skip undistortion)")
     parser.add_argument(
         "--cache_frames", type=float, default=0.0, metavar="GB",
         help="decoded-frame RAM cache per split: decode is paid once "
@@ -150,19 +164,10 @@ def main(argv=None) -> Trainer:
     for flag, where in _UNPORTED_FLAGS.items():
         if getattr(args, flag):
             parser.error(f"--{flag} is not ported yet (ROADMAP.md, {where})")
-    if args.camera_models_dir:
-        parser.error("--camera_models_dir is not ported yet (ROADMAP.md, "
-                     "Queue 1, item 14)")
     if args.device_cache == "shard":
         parser.error("--device_cache shard is not ported yet (ROADMAP.md, "
                      "Queue 1, item 17: the frame-sharded cache needs "
                      "several GPUs)")
-    if args.model == "mapnet++":
-        parser.error("--model mapnet++ is not ported yet (ROADMAP.md, "
-                     "Queue 1, item 13)")
-    if args.dataset == "RobotCar" and not args.raw_bayer:
-        parser.error("only --raw_bayer RobotCar input is ported so far "
-                     "(ROADMAP.md, Queue 1, item 14)")
     if args.raw_bayer and args.dataset != "RobotCar":
         parser.error("--raw_bayer requires --dataset RobotCar")
     config = parse_ini(args.config_file)
@@ -183,8 +188,9 @@ def main(argv=None) -> Trainer:
     data_path = (args.data_path if args.dataset == "synth"
                  else f"{args.data_path}/{args.dataset}")
     if args.raw_bayer:
-        preprocess = build_raw_device_preprocess(args.scene, args.asset_root,
-                                                 dtype=dtype)
+        preprocess = build_raw_device_preprocess(
+            args.scene, args.asset_root, dtype=dtype,
+            camera_models_dir=args.camera_models_dir)
     elif args.host_normalize:
         preprocess = None
     else:

@@ -1,10 +1,10 @@
-"""Multi-frame tuple dataset (MapNet's "MF").
+"""Multi-frame tuple datasets: MapNet's "MF", MapNet++'s ``MFOnline``.
 
-A numpy copy of :class:`geomapnet_tpu.data.composite.MF` (that package
-cannot be imported without jax); tests/test_torch_import_isolation.py pins
-the copy to the original. Reference parity: upstream
-dataset_loaders/composite.py. Datasets here are plain Python objects
-yielding numpy arrays; batching lives in
+Numpy copies of :mod:`geomapnet_tpu.data.composite`'s ``MF``, ``MFOnline``
+and ``OnlyPoses`` (that package cannot be imported without jax);
+tests/test_torch_import_isolation.py pins the copies to the originals.
+Reference parity: upstream dataset_loaders/composite.py. Datasets here are
+plain Python objects yielding numpy arrays; batching lives in
 :mod:`geomapnet_tpu_torch.data.loader`.
 
 A frame dataset must provide:
@@ -23,7 +23,7 @@ import numpy as np
 from .tuples import TupleSampler
 from .vo_np import vos_simple_np
 
-__all__ = ["MF"]
+__all__ = ["MF", "MFOnline", "OnlyPoses"]
 
 
 class MF:
@@ -125,3 +125,84 @@ class MF:
 
     def __len__(self) -> int:
         return len(self.sampler)
+
+
+class MFOnline:
+    """MapNet++ semi-supervised item: a labeled tuple ++ an unlabeled one.
+
+    Concatenates a train-split tuple (ground-truth absolute poses) with a
+    tuple of the unlabeled split whose targets are measured VOs (or its GPS
+    absolute positions in ``gps_mode``). Upstream
+    dataset_loaders/composite.py:105-129.
+
+    :param train_mf: MF over the labeled train split (include_vos=False)
+    :param val_mf: MF over the unlabeled split, built with ``real=True``
+        (VO mode), ``include_vos=not gps_mode``, ``no_duplicates=True`` and
+        ``vo_func=vos_logq_np``
+    """
+
+    def __init__(self, train_mf: MF, val_mf: MF, gps_mode: bool = False):
+        self.train_set = train_mf
+        self.val_set = val_mf
+        self.gps_mode = gps_mode
+
+    @property
+    def frame_sources(self) -> tuple:
+        """Both splits' base frame datasets, train first; the device frame
+        cache concatenates them into one stack, the unlabeled frames offset
+        by ``len(train frames)`` (as :meth:`get_indices` counts)."""
+        return (self.train_set.dset, self.val_set.dset)
+
+    def get_indices(self, index: int) -> np.ndarray:
+        """Frame rows into the concatenated [train frames ++ unlabeled
+        frames] stack: the labeled tuple's indices as they are, the
+        unlabeled tuple's shifted past the train split."""
+        t_idx = self.train_set.get_indices(index % len(self.train_set))
+        v_idx = self.val_set.get_indices(index % len(self.val_set))
+        return np.concatenate(
+            [t_idx, v_idx + len(self.train_set.dset)]).astype(np.int64)
+
+    def _poses_for(self, idx: np.ndarray) -> np.ndarray:
+        """The pose block of a :meth:`get_indices` row, assembled as
+        ``__getitem__`` does (labeled absolute poses ++ the VO block, or the
+        GPS targets)."""
+        k = self.train_set.steps
+        t_poses = self.train_set._poses_for(np.asarray(idx[:k]))
+        v_poses = self.val_set._poses_for(
+            np.asarray(idx[k:]) - len(self.train_set.dset))
+        if not self.gps_mode:
+            v_poses = v_poses[self.val_set.steps:]  # keep only the VO block
+        return np.concatenate([t_poses, v_poses], axis=0)
+
+    def __getitem__(self, index: int):
+        t_imgs, t_poses = self.train_set[index % len(self.train_set)]
+        v_imgs, v_poses = self.val_set[index % len(self.val_set)]
+        if not self.gps_mode:
+            v_poses = v_poses[self.val_set.steps:]  # keep only the VO block
+        if t_imgs is None or v_imgs is None:
+            return None, None
+        return (
+            np.concatenate([t_imgs, v_imgs], axis=0),
+            np.concatenate([t_poses, v_poses], axis=0),
+        )
+
+    def __len__(self) -> int:
+        return len(self.val_set)
+
+
+class OnlyPoses:
+    """Aligned (real, ground-truth) pose pairs, for diagnostics and plots
+    (upstream dataset_loaders/composite.py:131-159)."""
+
+    def __init__(self, real_dataset, gt_dataset):
+        self.real_dset = real_dataset
+        self.gt_dset = gt_dataset
+
+    def __getitem__(self, index: int):
+        real = self.real_dset.poses[index].astype(np.float32)
+        gt = self.gt_dset.poses[self.real_dset.gt_idx[index]].astype(
+            np.float32)
+        return real, gt
+
+    def __len__(self) -> int:
+        return len(self.real_dset)

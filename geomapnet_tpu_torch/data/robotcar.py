@@ -1,20 +1,23 @@
-"""Oxford RobotCar scene of raw Bayer mosaics.
+"""Oxford RobotCar scene: processed RGB frames or raw Bayer mosaics.
 
-The raw-Bayer part of :class:`geomapnet_tpu.data.robotcar.RobotCar`; it
-reads the same disk layout (upstream dataset_loaders/robotcar.py): a scene
+A copy of :class:`geomapnet_tpu.data.robotcar.RobotCar` without its native
+decoder (ROADMAP.md, Queue 1, item 15); it reads the same disk layout (upstream dataset_loaders/robotcar.py): a scene
 directory (``data_path/<scene>``) with ``train_split.txt`` /
 ``test_split.txt`` naming sequence dirs, each holding ``stereo.timestamps``,
 ``gps/ins.csv`` (ground truth), ``vo/vo.csv`` or ``gps/gps_ins.csv`` (the
-"real" poses) and ``stereo/centre/<ts>.png`` mosaics; an assets dir with the
+"real" poses) and ``stereo/centre/<ts>.png`` images; an assets dir with the
 scene's ``pose_stats.txt`` and per-sequence ``<vo_lib>_vo_stats.pkl``
 alignments of the real poses into the ground-truth frame.
 
-Frames are the untouched single-channel GBRG mosaics, uint8 (H, W): the
-device pipeline (:func:`geomapnet_tpu_torch.ops.image.make_device_pipeline`)
-demosaics, resizes and normalizes them. Poses are normalized by the
+Frames are either the images on disk through PIL and the host
+``transform`` (the offline-processed RGB frames; with ``undistort`` a raw
+mosaic is demosaiced and undistorted on the host first, upstream
+robotcar.py:110-125), or with ``raw_bayer`` the untouched single-channel
+GBRG mosaics, uint8 (H, W), which the device pipeline
+(:func:`geomapnet_tpu_torch.ops.image.make_device_pipeline`) demosaics,
+[undistorts,] resizes and normalizes. Poses are normalized by the
 ground-truth translation mean/std, written when the ground-truth train
-split is built and read back otherwise (upstream robotcar.py:89-99). Host
-demosaic/undistort and the native batch decoder are not ported yet.
+split is built and read back otherwise (upstream robotcar.py:89-99).
 """
 
 from __future__ import annotations
@@ -28,7 +31,12 @@ from pathlib import Path
 import numpy as np
 
 from ..geometry.process import process_poses
-from .robotcar_sdk import interpolate_ins_poses, interpolate_vo_poses
+from .robotcar_sdk import (
+    CameraModel,
+    interpolate_ins_poses,
+    interpolate_vo_poses,
+    load_stereo_image,
+)
 
 __all__ = ["RobotCar"]
 
@@ -97,19 +105,29 @@ def _clamp_degenerate_std(std_t: np.ndarray, threshold: float) -> np.ndarray:
 
 
 class RobotCar:
-    """One RobotCar scene (e.g. 'loop', 'full') as a frame dataset of raw
-    Bayer mosaics.
+    """One RobotCar scene (e.g. 'loop', 'full') as a frame dataset.
 
     :param scene: sequence collection name
     :param data_path: raw dataset root (contains ``<scene>/<seq dirs>``)
     :param train: train vs test split; the ground-truth train split writes
         ``pose_stats.txt``, every other split reads it
-    :param asset_dir: processed-assets root (defaults to ``data/RobotCar``)
-    :param raw_size: expected (H, W) of the mosaics (RobotCar Grasshopper2:
-        960x1280); a frame of another shape counts as corrupt
+    :param transform: callable PIL image -> array for the RGB frames
+        (ignored with ``raw_bayer``)
+    :param target_transform: callable on the (6,) pose of ``__getitem__``
     :param real: poses from VO/GPS integration instead of INS ground truth
     :param skip_images: pose-only dataset (images None)
+    :param seed: seeds numpy's global generator, as upstream does
+    :param undistort: demosaic and undistort raw mosaics on the host when
+        loading an RGB frame (slow; the device pipeline does it on the
+        card)
     :param vo_lib: 'stereo' (vo.csv) or 'gps' (gps_ins.csv) for real=True
+    :param asset_dir: processed-assets root (defaults to ``data/RobotCar``)
+    :param camera_models_dir: the SDK's camera models, for ``undistort``
+        (defaults to ``data/robotcar_camera_models``)
+    :param raw_bayer: frames are the untouched (H, W) uint8 mosaics, for
+        the device pipeline; ``transform`` is ignored
+    :param raw_size: expected (H, W) of the mosaics (RobotCar Grasshopper2:
+        960x1280); a mosaic of another shape counts as corrupt
     """
 
     def __init__(
@@ -117,12 +135,23 @@ class RobotCar:
         scene: str,
         data_path: str,
         train: bool,
-        asset_dir: str | None = None,
-        raw_size: tuple[int, int] = (960, 1280),
+        transform=None,
+        target_transform=None,
         real: bool = False,
         skip_images: bool = False,
+        seed: int = 7,
+        undistort: bool = False,
         vo_lib: str = "stereo",
+        asset_dir: str | None = None,
+        camera_models_dir: str | None = None,
+        raw_bayer: bool = False,
+        raw_size: tuple[int, int] = (960, 1280),
     ):
+        np.random.seed(seed)
+        self.transform = transform
+        self.target_transform = target_transform
+        self.undistort = undistort
+        self.raw_bayer = raw_bayer
         self.raw_size = tuple(raw_size)
         self.skip_images = skip_images
         scene_dir = Path(os.path.expanduser(data_path)) / scene
@@ -149,36 +178,64 @@ class RobotCar:
         ]).astype(np.float32)
         self.gt_idx = np.arange(len(self.poses))
 
-    def get_image(self, index: int) -> np.ndarray | None:
-        """The (H, W) uint8 mosaic, or None when it cannot be read or has
-        another shape than ``raw_size`` (always None with
-        ``skip_images``)."""
+        self._camera_model = None
+        if undistort:
+            models_dir = camera_models_dir or str(
+                Path("data") / "robotcar_camera_models")
+            self._camera_model = CameraModel(models_dir,
+                                             Path("stereo") / "centre")
+
+    def get_image(self, index: int):
+        """The frame, or None when it cannot be read (always None with
+        ``skip_images``): with ``raw_bayer`` the (H, W) uint8 mosaic (None
+        when it has another shape than ``raw_size``), else the image through
+        the host ``transform`` (a numpy array of the PIL image without
+        one)."""
         if self.skip_images:
             return None
         from PIL import Image
 
-        try:
-            raw = np.asarray(Image.open(self.imgs[index]))
-        except (IOError, OSError) as e:
-            print(f"Could not load image {self.imgs[index]}: {e}")
-            return None
-        if raw.ndim != 2 or raw.shape != self.raw_size:
-            return None
-        return raw.astype(np.uint8)
+        if self.raw_bayer:
+            try:
+                raw = np.asarray(Image.open(self.imgs[index]))
+            except (IOError, OSError) as e:
+                print(f"Could not load image {self.imgs[index]}: {e}")
+                return None
+            if raw.ndim != 2 or raw.shape != self.raw_size:
+                return None
+            return raw.astype(np.uint8)
+        if self.undistort:
+            img = load_stereo_image(self.imgs[index], self._camera_model)
+            if img is None:
+                return None
+            img = Image.fromarray(np.uint8(np.clip(img, 0, 255)))
+        else:
+            try:
+                img = Image.open(self.imgs[index])
+            except (IOError, OSError) as e:
+                print(f"Could not load image {self.imgs[index]}: {e}")
+                return None
+        if self.transform is not None:
+            return self.transform(img)
+        return np.asarray(img)
 
     def get_images(self, indices, num_workers: int = 4) -> list:
-        """:meth:`get_image` for many frames; PNG decodes release the GIL,
-        so ``num_workers`` threads decode in parallel."""
+        """:meth:`get_image` for many frames. Mosaic PNG decodes release the
+        GIL, so ``num_workers`` threads decode them in parallel; RGB frames
+        load in order (a jittering transform draws from one generator)."""
         indices = [int(i) for i in indices]
         if self.skip_images:
             return [None] * len(indices)
-        if num_workers <= 1 or len(indices) <= 1:
+        if not self.raw_bayer or num_workers <= 1 or len(indices) <= 1:
             return [self.get_image(i) for i in indices]
         with ThreadPoolExecutor(num_workers) as pool:
             return list(pool.map(self.get_image, indices))
 
     def __getitem__(self, index: int):
-        return self.get_image(index), self.poses[index]
+        pose = self.poses[index]
+        if self.target_transform is not None:
+            pose = self.target_transform(pose)
+        return self.get_image(index), pose
 
     def __len__(self) -> int:
         return len(self.poses)

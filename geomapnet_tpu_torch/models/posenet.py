@@ -11,8 +11,10 @@ The PyTorch counterpart of :mod:`geomapnet_tpu.models.posenet`
 ``dtype`` places the heads' compute dtype as Flax's ``nn.Dense(dtype=...)``
 does: input, kernel and bias cast to ``dtype``, and the concatenated pose
 cast to float32. Dense kernels start from ``kaiming_normal`` and biases from
-zero, as the Flax heads do. The NaN-gradient guard of MapNet++ training is
-not ported yet.
+zero, as the Flax heads do. With ``filter_nans`` (MapNet++ fine-tuning) the
+log-q head's output passes through :func:`nan_grad_guard`, which zeroes NaN
+and infinite cotangents in the backward (upstream ``filter_hook``,
+scripts/train.py:77-78; JAX ``models/posenet.py:51-64``).
 
 Dropout (Flax's placement and scaling: ``fc_feat -> relu -> dropout``, kept
 features divided by ``1 - droprate``) is active in train mode, and at
@@ -32,7 +34,8 @@ from torch import nn
 
 from .resnet import ResNet, kaiming_normal_, resnet34
 
-__all__ = ["PoseNet", "MapNet", "Linear", "dropout_keep_mask"]
+__all__ = ["PoseNet", "MapNet", "Linear", "dropout_keep_mask",
+           "nan_grad_guard"]
 
 
 class Linear(nn.Linear):
@@ -55,6 +58,25 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
+class _NanGradGuard(torch.autograd.Function):
+    """Identity whose backward replaces NaN and infinite cotangents with
+    zero."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def nan_grad_guard(x: torch.Tensor) -> torch.Tensor:
+    """``x`` unchanged; in the backward, NaN and +-inf entries of the
+    incoming gradient become zero (the others pass as they are)."""
+    return _NanGradGuard.apply(x)
+
+
 class PoseNet(nn.Module):
     """Single-image 6-DoF pose regressor.
 
@@ -63,13 +85,17 @@ class PoseNet(nn.Module):
     :param droprate: dropout probability after the feature fc (applied in
         train mode, or when ``forward`` gets a generator or a keep-mask)
     :param feat_dim: width of the feature fc (reference: 2048)
+    :param filter_nans: guard the log-q head against NaN gradients
+        (:func:`nan_grad_guard`; MapNet++ fine-tuning)
     :param dtype: compute dtype of the heads
     """
 
     def __init__(self, feature_extractor: ResNet | None = None,
                  droprate: float = 0.5, feat_dim: int = 2048,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 filter_nans: bool = False):
         super().__init__()
+        self.filter_nans = filter_nans
         self.feature_extractor = feature_extractor or resnet34(dtype)
         self.fc_feat = Linear(self.feature_extractor.out_features, feat_dim,
                               dtype)
@@ -102,8 +128,10 @@ class PoseNet(nn.Module):
             feats = torch.where(keep_mask, feats / keep,
                                 torch.zeros((), dtype=feats.dtype,
                                             device=feats.device))
-        return torch.cat([self.fc_xyz(feats), self.fc_wpqr(feats)],
-                         dim=-1).float()
+        wpqr = self.fc_wpqr(feats)
+        if self.filter_nans:
+            wpqr = nan_grad_guard(wpqr)
+        return torch.cat([self.fc_xyz(feats), wpqr], dim=-1).float()
 
 
 def dropout_keep_mask(shape, droprate: float,

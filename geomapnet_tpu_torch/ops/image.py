@@ -1,13 +1,17 @@
 """Image preprocessing on the device: raw uint8 batch -> model input.
 
 The PyTorch counterpart of :mod:`geomapnet_tpu.ops.image`, for the RobotCar
-raw-Bayer path and the RGB (7Scenes) path. For mosaics,
-:func:`make_device_pipeline` composes the hand-written CUDA
-demosaic+normalize kernel (:mod:`geomapnet_tpu_torch.ops.cuda_image`) with a
-separable resize done as two dense matmuls, the order the JAX package runs
-on its accelerator. RGB batches take JAX's non-Bayer branch: float32, an
-optional resize, then :func:`normalize`. Batches are NHWC at the public
-boundary, as in the JAX package.
+raw-Bayer path and the RGB (7Scenes, RobotCar processed) path. For mosaics
+resized to at most half their size, :func:`make_device_pipeline` composes
+the hand-written CUDA demosaic+normalize kernel
+(:mod:`geomapnet_tpu_torch.ops.cuda_image`) with a separable resize done as
+two dense matmuls, the order the JAX package runs on its accelerator. With
+undistortion maps, or a larger target, it runs JAX's other branch as torch
+ops: the full-resolution bilinear :func:`demosaic`, the LUT
+:func:`undistort` (four gathers), :func:`resize_bilinear`, then
+:func:`normalize`. RGB batches take JAX's non-Bayer branch: float32, an
+optional undistort and resize, then :func:`normalize`. Batches are NHWC at
+the public boundary, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,18 +21,88 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import cuda_image
 
 __all__ = [
     "box_halve",
+    "demosaic",
     "demosaic_half",
+    "precompute_undistort_maps",
+    "undistort",
     "normalize",
     "resize_bilinear",
     "resize_bilinear_matmul",
     "resize_shorter_side_shape",
     "make_device_pipeline",
 ]
+
+
+def demosaic(raw: torch.Tensor) -> torch.Tensor:
+    """Batched bilinear GBRG demosaic: (N, H, W) -> (N, H, W, 3) float32 in
+    [0, 255], as :func:`geomapnet_tpu.ops.image.demosaic` (the device
+    version of :func:`geomapnet_tpu_torch.data.robotcar_sdk.demosaic_gbrg`):
+    each site keeps its own sample and averages its cross, diagonal,
+    horizontal or vertical neighbours (reflect padding) for the others."""
+    x = raw.to(torch.float32)
+    _, h, w = x.shape
+    pad = F.pad(x[:, None], (1, 1, 1, 1), mode="reflect")[:, 0]
+
+    def shift(dy, dx):
+        return pad[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+
+    cross = (shift(-1, 0) + shift(1, 0) + shift(0, -1) + shift(0, 1)) * 0.25
+    diag = (shift(-1, -1) + shift(-1, 1) + shift(1, -1) + shift(1, 1)) * 0.25
+    horiz = (shift(0, -1) + shift(0, 1)) * 0.5
+    vert = (shift(-1, 0) + shift(1, 0)) * 0.5
+
+    row = torch.arange(h, device=x.device)[:, None] % 2
+    col = torch.arange(w, device=x.device)[None, :] % 2
+    g_mask = row == col              # G at (even, even) and (odd, odd)
+    b_mask = (row == 0) & (col == 1)
+    r_mask = (row == 1) & (col == 0)
+
+    green = torch.where(g_mask, x, cross)
+    red = torch.where(r_mask, x, torch.where(
+        b_mask, diag, torch.where(g_mask & (row == 1), horiz, vert)))
+    blue = torch.where(b_mask, x, torch.where(
+        r_mask, diag, torch.where(g_mask & (row == 0), horiz, vert)))
+    return torch.clamp(torch.stack([red, green, blue], dim=-1), 0.0, 255.0)
+
+
+def precompute_undistort_maps(lut: np.ndarray, height: int, width: int):
+    """A camera LUT (2, H*W) of float64 source coordinates -> the gather
+    maps of :func:`undistort`: int32 (H, W) ``y0``, ``x0`` (the floor, edge
+    clamped) and float32 (H, W) fractional parts ``fy``, ``fx``; host work
+    done once (:func:`geomapnet_tpu.ops.image.precompute_undistort_maps`)."""
+    lx = lut[0].reshape(height, width)
+    ly = lut[1].reshape(height, width)
+    x0 = np.clip(np.floor(lx), 0, width - 1).astype(np.int32)
+    y0 = np.clip(np.floor(ly), 0, height - 1).astype(np.int32)
+    fx = (lx - x0).astype(np.float32)
+    fy = (ly - y0).astype(np.float32)
+    return y0, x0, fy, fx
+
+
+def undistort(img: torch.Tensor, y0, x0, fy, fx) -> torch.Tensor:
+    """Batched LUT undistortion, (N, H, W, C) -> (N, H, W, C) float32: each
+    output pixel bilinearly samples its source point through four gathers
+    (the maps of :func:`precompute_undistort_maps`, numpy or tensors), in
+    :func:`geomapnet_tpu.ops.image.undistort`'s order of operations."""
+    dev = img.device
+    h, w = img.shape[1], img.shape[2]
+    y0 = torch.as_tensor(y0, device=dev).long()
+    x0 = torch.as_tensor(x0, device=dev).long()
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    fy = torch.as_tensor(fy, device=dev)[None, :, :, None]
+    fx = torch.as_tensor(fx, device=dev)[None, :, :, None]
+    im = img.to(torch.float32)
+    return (im[:, y0, x0] * (1 - fx) * (1 - fy)
+            + im[:, y0, x1] * fx * (1 - fy)
+            + im[:, y1, x0] * (1 - fx) * fy
+            + im[:, y1, x1] * fx * fy)
 
 
 def demosaic_half(raw: torch.Tensor) -> torch.Tensor:
@@ -160,53 +234,66 @@ def make_device_pipeline(
 
     :param bayer: input is an (N, H, W) or (N, T, H, W) GBRG mosaic batch
         (RobotCar raw); else an (N, H, W, 3) or (N, T, H, W, 3) RGB batch
-    :param resize_to: target (H, W); for mosaics at most half their size
-    :param undistort_maps: not ported yet
+    :param resize_to: target (H, W) after the geometry ops (None: none)
+    :param undistort_maps: output of :func:`precompute_undistort_maps`
+        (moved to each batch's device once)
     :return: ``pipeline(raw) -> (N[, T], out_h, out_w, 3)`` in ``dtype``
 
-    Mosaics run what the JAX package runs on its accelerator: the fused
-    demosaic + normalize kernel writes planar float32 at half resolution,
-    the matmul resize follows (normalize commutes with the linear resize),
-    then the NHWC view and the cast. A CUDA batch goes through the CUDA
-    kernel, a CPU batch through its plain version. RGB batches are cast to
-    float32, resized when ``resize_to`` is given, and normalized.
+    The branches are JAX's. A mosaic without undistortion maps and with a
+    target of at most half its size runs what the JAX package runs on its
+    accelerator: the fused demosaic + normalize kernel writes planar
+    float32 at half resolution (a CUDA batch through the CUDA kernel, a CPU
+    batch through its plain version), the matmul resize follows (normalize
+    commutes with the linear resize), then the NHWC view and the cast. Any
+    other mosaic runs :func:`demosaic` at full resolution, then
+    :func:`undistort` when maps are given, :func:`resize_bilinear` when a
+    target is, and :func:`normalize`. RGB batches are cast to float32, then
+    undistorted, resized and normalized the same way.
     """
-    if undistort_maps is not None:
-        raise NotImplementedError(
-            "undistortion on the device is not ported yet (ROADMAP.md, "
-            "Queue 1: undistort / full demosaic)")
     mean = tuple(float(m) for m in mean)
     std = tuple(float(s) for s in std)
+    maps_on: dict = {}
+
+    def maps_for(device: torch.device) -> tuple:
+        # the maps move to each device once: a copy from the host inside a
+        # CUDA graph capture would fail
+        if device not in maps_on:
+            y0, x0, fy, fx = undistort_maps
+            maps_on[device] = tuple(
+                torch.from_numpy(np.asarray(a)).to(device)
+                for a in (y0.astype(np.int64), x0.astype(np.int64), fy, fx))
+        return maps_on[device]
+
+    def geometry_normalize(img: torch.Tensor) -> torch.Tensor:
+        if undistort_maps is not None:
+            img = undistort(img, *maps_for(img.device))
+        if resize_to is not None:
+            img = resize_bilinear(img, *resize_to)
+        return normalize(img, mean, std, dtype=dtype)
+
     if not bayer:
         def rgb_pipeline(raw: torch.Tensor) -> torch.Tensor:
             lead = raw.shape[:-3]
             img = raw.reshape((-1,) + tuple(raw.shape[-3:])).to(torch.float32)
-            if resize_to is not None:
-                img = resize_bilinear(img, *resize_to)
-            out = normalize(img, mean, std, dtype=dtype)
+            out = geometry_normalize(img)
             return out.reshape(tuple(lead) + tuple(out.shape[1:]))
 
         return rgb_pipeline
-    if resize_to is None:
-        raise NotImplementedError(
-            "a full-resolution demosaic is not ported yet (ROADMAP.md, "
-            "Queue 1: undistort / full demosaic); pass resize_to")
-    out_h, out_w = resize_to
 
     def pipeline(raw: torch.Tensor) -> torch.Tensor:
         # tuple batches (N, T, H, W) fold the frame axis into the batch for
         # the per-image stages (mirrors MapNet's reshape)
         lead = raw.shape[:-2]
         raw = raw.reshape((-1,) + tuple(raw.shape[-2:]))
-        if out_h * 2 > raw.shape[1] or out_w * 2 > raw.shape[2]:
-            raise NotImplementedError(
-                f"resize to {resize_to} from a {tuple(raw.shape[1:])} mosaic "
-                f"needs the full-resolution demosaic, not ported yet "
-                f"(ROADMAP.md, Queue 1: undistort / full demosaic)")
-        img = cuda_image.demosaic_half_normalize(
-            raw.contiguous(), mean, std, dtype=torch.float32, planar=True)
-        img = resize_bilinear_matmul(img, out_h, out_w)
-        out = img.permute(0, 2, 3, 1).to(dtype)
+        if (undistort_maps is None and resize_to is not None
+                and resize_to[0] * 2 <= raw.shape[1]
+                and resize_to[1] * 2 <= raw.shape[2]):
+            img = cuda_image.demosaic_half_normalize(
+                raw.contiguous(), mean, std, dtype=torch.float32, planar=True)
+            img = resize_bilinear_matmul(img, *resize_to)
+            out = img.permute(0, 2, 3, 1).to(dtype)
+        else:
+            out = geometry_normalize(demosaic(raw))
         return out.reshape(tuple(lead) + tuple(out.shape[1:]))
 
     return pipeline

@@ -29,7 +29,6 @@ ROADMAP.md, Queue 1, item 17.
 
 from __future__ import annotations
 
-import math
 import time
 from pathlib import Path
 from typing import Callable
@@ -38,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..data.composite import MF, MFOnline
 from ..data.device_cache import (
     FrameRecorder,
     IndexLoader,
@@ -68,6 +68,16 @@ def chunked(iterable, k):
             chunk = []
     if chunk:
         yield chunk
+
+
+def _frames_per_item(dataset) -> int:
+    """The frames the model forwards for one item of ``dataset``: both
+    tuples of a MapNet++ item, an MF tuple's frames, else one."""
+    if isinstance(dataset, MFOnline):
+        return dataset.train_set.steps + dataset.val_set.steps
+    if isinstance(dataset, MF):
+        return dataset.steps
+    return 1
 
 
 def _kernel_launches() -> dict:
@@ -167,6 +177,8 @@ class Trainer:
     :param config: :class:`geomapnet_tpu_torch.cli.config.ExperimentConfig`
     :param experiment: experiment name (logdir ``<logdir_root>/<experiment>``)
     :param train_dataset / val_dataset: indexable (imgs, poses) datasets
+        (MapNet++ trains on ``MFOnline`` items and has no validation
+        split: ``val_dataset`` None)
     :param checkpoint: a port checkpoint to start from
     :param resume_optim: restore the optimizer, loss weights and epoch too
         (else the weights only)
@@ -293,8 +305,9 @@ class Trainer:
                 print(f"Loaded model weights from {checkpoint}")
 
         # per trained epoch: host seconds (to a device sync), seconds spent
-        # waiting on the loader, steps and images
+        # waiting on the loader, steps and forwarded frames
         self.epoch_stats: list[dict] = []
+        self._frames_per_item = _frames_per_item(train_dataset)
         self.train_step = make_train_step(
             self.model, self.train_criterion, self.optimizer,
             preprocess=preprocess, accum_steps=accum_steps)
@@ -532,7 +545,7 @@ class Trainer:
             if prof is not None and base >= PROFILE_BATCHES:
                 self._stop_profiler(prof)
                 prof = None
-            images += sum(math.prod(c[1].shape[:-1]) for c in chunk)
+            images += self._frames_per_item * sum(len(c[1]) for c in chunk)
             count = self.optimizer.count
             if launch is not None and len(chunk) == K:
                 # K steps in one launch; timing meters are per launch here

@@ -117,13 +117,18 @@ class TrainStep:
         self.feat_dim = posenet.fc_feat.out_features
 
     def _loss(self, images: torch.Tensor, targets: torch.Tensor,
-              frames: torch.Tensor | None,
-              keep_mask: torch.Tensor | None) -> torch.Tensor:
+              frames: torch.Tensor | None, keep_mask: torch.Tensor | None,
+              seed: int, micro: int) -> torch.Tensor:
         with torch.no_grad():
             if frames is not None:
                 images = gather_frames(frames, images)
             if self.preprocess is not None:
                 images = self.preprocess(images)
+        if keep_mask is None and self.droprate > 0:
+            # one row per forwarded frame: (B[, T], H, W, C) model input
+            keep_mask = step_keep_mask(
+                seed, self.optimizer.step_t, micro,
+                (math.prod(images.shape[:-3]), self.feat_dim), self.droprate)
         if self.remat:
             out = checkpoint(self.model, images, None, keep_mask,
                              use_reentrant=False, preserve_rng_state=False,
@@ -148,11 +153,7 @@ class TrainStep:
         for k, (im, tg) in enumerate(zip(images.split(micro),
                                          targets.split(micro))):
             mask = keep_masks[k] if keep_masks is not None else None
-            if mask is None and self.droprate > 0:
-                mask = step_keep_mask(
-                    seed, self.optimizer.step_t, k,
-                    (math.prod(tg.shape[:-1]), self.feat_dim), self.droprate)
-            loss = self._loss(im, tg, frames, mask)
+            loss = self._loss(im, tg, frames, mask, seed, k)
             loss.backward()
             loss = loss.detach()
             total = loss if total is None else total + loss

@@ -147,7 +147,8 @@ def test_evaluate_matches_jax(tmp_path, monkeypatch, model_name):
                                              8))
 
     frames = RobotCar("loop", str(raw), train=True,
-                      asset_dir=str(assets / "RobotCar"), raw_size=(32, 48))
+                      asset_dir=str(assets / "RobotCar"), raw_bayer=True,
+                      raw_size=(32, 48))
     ds = MF(frames, steps=3, skip=2) if is_tuple else frames
     model, _ = builders.build_model(model_name, config, trunk="resnet18")
     (model.posenet if is_tuple else model).load_state_dict(
@@ -213,20 +214,23 @@ def test_cli_refuses_silent_cpu(tmp_path, monkeypatch):
 
 
 def test_unported_datasets_raise(tmp_path):
-    """The native decoder and RobotCar's processed RGB frames are refused
-    naming ROADMAP.md, also for VO ("real") poses; a pose-only RobotCar
-    dataset (the ground truth of a PGO run) needs no input type."""
+    """The native decoder is refused naming ROADMAP.md. RobotCar's
+    processed RGB frames are ported: the builders make the RGB dataset
+    (tests/test_torch_robotcar_rgb.py holds it to JAX's), also for VO
+    ("real") poses; a pose-only RobotCar dataset (the ground truth of a PGO
+    run) needs no input type."""
     from geomapnet_tpu_torch.data.sevenscenes import SevenScenes
+    from test_torch_eval_pgo import write_stereo_vo
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SevenScenes("heads", str(tmp_path), True, use_native=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        builders.build_frame_dataset("RobotCar", "loop", "x", True,
-                                     raw_bayer=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        builders.build_frame_dataset("RobotCar", "loop", "x", True,
-                                     real=True, raw_bayer=False)
     raw, assets = write_bayer_scene(tmp_path, n=3, h=8, w=12)
+    write_stereo_vo(raw, assets, n=3)
+    for real in (False, True):
+        rgb = builders.build_frame_dataset(
+            "RobotCar", "loop", str(raw), True, real=real,
+            asset_root=str(assets), raw_bayer=False)
+        assert not rgb.raw_bayer and rgb.get_image(0).shape == (8, 12)
     gt = builders.build_frame_dataset("RobotCar", "loop", str(raw), True,
                                       skip_images=True,
                                       asset_root=str(assets))

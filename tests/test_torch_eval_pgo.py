@@ -261,7 +261,8 @@ def test_robotcar_stereo_vo_pgo_matches_jax(tmp_path, monkeypatch, npz):
                              / "pose_stats.txt"))
 
     frames = RobotCar("loop", str(raw), train=False, asset_dir=rc,
-                      raw_size=(32, 48), real=True, vo_lib="stereo")
+                      raw_bayer=True, raw_size=(32, 48), real=True,
+                      vo_lib="stereo")
     gt = builders.build_frame_dataset(
         "RobotCar", "loop", str(raw), False, skip_images=True,
         asset_root=str(assets))

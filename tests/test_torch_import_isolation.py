@@ -93,7 +93,8 @@ def test_new_modules_are_covered():
     for m in ("geometry.quaternion", "geometry.se3", "geometry.vo", "pgo",
               "pgo.pose_graph", "losses.criterion", "models.torch_import",
               "train.optim", "train.state", "train.checkpoint", "train.loop",
-              "utils.logger", "cli.train"):
+              "utils.logger", "cli.train", "data.robotcar_sdk",
+              "data.composite"):
         assert f"geomapnet_tpu_torch.{m}" in mods, m
 
 
@@ -204,6 +205,92 @@ def test_mf_and_loader_copies(kw):
         assert na == nb
         np.testing.assert_array_equal(ia, ib)
         np.testing.assert_array_equal(pa, pb)
+
+
+@pytest.mark.parametrize("gps", [False, True])
+def test_mfonline_and_only_poses_copies(gps):
+    """MapNet++'s composite: items (a corrupt unlabeled frame included),
+    ``get_indices`` rows, ``_poses_for`` blocks and ``frame_sources`` equal
+    the originals, with VO targets and in ``gps_mode``; so do
+    ``OnlyPoses``' (real, ground-truth) pairs."""
+    from geomapnet_tpu.data import MFOnline as JaxMFOnline
+    from geomapnet_tpu.data import OnlyPoses as JaxOnlyPoses
+    from geomapnet_tpu_torch.data import MFOnline, OnlyPoses
+
+    train, unlab, gt = _Frames(9), _Frames(13, bad=(6,)), _Frames(13)
+    unlab.gt_idx = np.arange(13)[::-1].copy()
+
+    def build(mf, online, vo):
+        kw = dict(steps=3, skip=2)
+        return online(mf(train, **kw), mf(
+            unlab, include_vos=not gps, real=not gps, no_duplicates=True,
+            gt_dataset=None if gps else gt, vo_func=vo.vos_logq_np, **kw),
+            gps_mode=gps)
+
+    ours, theirs = build(MF, MFOnline, vo_np), build(JaxMF, JaxMFOnline,
+                                                      jax_vo)
+    assert len(ours) == len(theirs)
+    assert ours.frame_sources == theirs.frame_sources == (train, unlab)
+    for i in range(len(ours)):
+        idx = ours.get_indices(i)
+        np.testing.assert_array_equal(idx, theirs.get_indices(i))
+        np.testing.assert_array_equal(ours._poses_for(idx),
+                                      theirs._poses_for(idx))
+        (a, p), (b, q) = ours[i], theirs[i]
+        assert (a is None) == (b is None) and (p is None) == (q is None)
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(p, q)
+    assert any(ours[i][0] is None for i in range(len(ours)))
+    pairs, jpairs = OnlyPoses(unlab, gt), JaxOnlyPoses(unlab, gt)
+    assert len(pairs) == len(jpairs) == 13
+    for i in (0, 5, 12):
+        for x, y in zip(pairs[i], jpairs[i], strict=True):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_robotcar_sdk_image_copies(tmp_path):
+    """``demosaic_gbrg``, ``CameraModel`` (intrinsics, LUT, undistortion)
+    and ``load_stereo_image`` (a mosaic, an RGB image, an unreadable file;
+    with and without a model) equal the originals."""
+    from PIL import Image
+
+    from geomapnet_tpu.data import robotcar_sdk as jsdk
+    from geomapnet_tpu_torch.data import robotcar_sdk as sdk
+
+    rs = np.random.RandomState(2)
+    for shape in ((8, 12), (7, 9)):
+        raw = rs.randint(0, 256, shape, dtype=np.uint8)
+        np.testing.assert_array_equal(sdk.demosaic_gbrg(raw),
+                                      jsdk.demosaic_gbrg(raw))
+    h, w = 8, 12
+    d = tmp_path / "models"
+    d.mkdir()
+    np.savetxt(d / "stereo_narrow_left.txt", [[400.0, 401.0, 6.0, 4.0]])
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    np.stack([(xx + 0.6 * np.sin(yy)).ravel(),
+              (yy + 0.4 * np.cos(xx) - 0.5).ravel()]).tofile(
+        d / "stereo_narrow_left_distortion_lut.bin")
+    ours = sdk.CameraModel(d, "stereo/centre")
+    theirs = jsdk.CameraModel(d, "stereo/centre")
+    assert (ours.focal_length, ours.principal_point) == (
+        theirs.focal_length, theirs.principal_point)
+    np.testing.assert_array_equal(ours.lut, theirs.lut)
+    for sub in ("stereo/left", "stereo/right", "mono_rear"):
+        assert sdk.CameraModel._model_name(sub) == \
+            jsdk.CameraModel._model_name(sub)
+    img = rs.uniform(0, 255, (h, w, 3)).astype(np.float32)
+    np.testing.assert_array_equal(ours.undistort(img), theirs.undistort(img))
+    Image.fromarray(rs.randint(0, 256, (h, w), dtype=np.uint8)).save(
+        tmp_path / "mosaic.png")
+    Image.fromarray(rs.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(
+        tmp_path / "rgb.png")
+    for name in ("mosaic.png", "rgb.png"):
+        for a, b in ((None, None), (ours, theirs)):
+            np.testing.assert_array_equal(
+                sdk.load_stereo_image(tmp_path / name, a),
+                jsdk.load_stereo_image(tmp_path / name, b))
+    assert sdk.load_stereo_image(tmp_path / "missing.png") is None
 
 
 @pytest.mark.parametrize("bad", [(), (0, 4)])
@@ -375,7 +462,8 @@ def test_ins_interpolation_and_robotcar_poses(tmp_path):
         np.asarray(jax_interpolate_ins(ins, stamps, 1200)))
     for train in (True, False):  # the train split writes pose_stats.txt
         ours = RobotCar("loop", str(raw), train=train,
-                        asset_dir=str(assets / "RobotCar"), raw_size=(8, 12))
+                        asset_dir=str(assets / "RobotCar"), raw_bayer=True,
+                        raw_size=(8, 12))
         theirs = JaxRobotCar("loop", str(raw), train=train,
                              asset_dir=str(assets / "RobotCar"),
                              raw_bayer=True, raw_size=(8, 12))
@@ -424,7 +512,8 @@ def test_vo_interpolation_and_real_robotcar_poses(tmp_path, vo_lib):
 def test_robotcar_wrong_size_frame_is_corrupt(tmp_path):
     raw, assets = write_bayer_scene(tmp_path, n=3, h=8, w=12)
     ds = RobotCar("loop", str(raw), train=True,
-                  asset_dir=str(assets / "RobotCar"), raw_size=(8, 14))
+                  asset_dir=str(assets / "RobotCar"), raw_bayer=True,
+                  raw_size=(8, 14))
     assert ds.get_image(0) is None
     assert ds.get_images([0, 1], num_workers=2) == [None, None]
 

@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from geomapnet_tpu.ops.image import make_device_pipeline as jax_pipeline
+from geomapnet_tpu.ops.image import (
+    precompute_undistort_maps as jax_precompute_maps,
+)
 from geomapnet_tpu.ops.image import resize_bilinear_matmul as jax_resize
 from geomapnet_tpu.ops.pallas_image import demosaic_half_normalize as jax_dhn
 from geomapnet_tpu_torch.ops import cuda_image
@@ -155,20 +158,49 @@ def test_bayer_pipeline_bf16_output():
     assert torch.equal(out16, pipe32(torch.from_numpy(raw)).to(torch.bfloat16))
 
 
+def _shift_lut(h, w):
+    """A camera LUT that samples each pixel from a point shifted by a
+    smooth sub-pixel offset (past the edges near the borders)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    return np.stack([(xx + 0.7 * np.sin(yy / 5.0) + 0.3).ravel(),
+                     (yy + 0.6 * np.cos(xx / 7.0) - 0.2).ravel()])
+
+
 @pytest.mark.parametrize("kwargs", [
-    dict(bayer=True, resize_to=(8, 12), undistort_maps=object()),
-    dict(bayer=False, resize_to=(8, 12), undistort_maps=object()),
+    dict(bayer=True, resize_to=(8, 12), undistort_maps="lut"),
+    dict(bayer=False, resize_to=(8, 12), undistort_maps="lut"),
     dict(bayer=True, resize_to=None),
 ])
 def test_unported_pipeline_branches_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_device_pipeline(MEAN, STD, **kwargs)
+    """The branches that raised before the undistortion and the full
+    demosaic were ported (undistortion maps for mosaics and RGB, a
+    full-resolution mosaic) now equal JAX's pipeline within 1e-5; JAX takes
+    these branches on every backend."""
+    if kwargs.get("undistort_maps") == "lut":
+        kwargs = dict(kwargs, undistort_maps=jax_precompute_maps(
+            _shift_lut(32, 48), 32, 48))
+    shape = (2, 32, 48) if kwargs["bayer"] else (2, 32, 48, 3)
+    raw = _mosaic(shape, seed=4)
+    want = np.asarray(jax_pipeline(MEAN, STD, dtype=jnp.float32, **kwargs)(
+        jnp.asarray(raw)))
+    got = make_device_pipeline(MEAN, STD, dtype=torch.float32, **kwargs)(
+        torch.from_numpy(raw)).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5
 
 
 def test_upsampling_resize_raises():
-    pipe = make_device_pipeline(MEAN, STD, resize_to=(20, 30), bayer=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe(torch.zeros((1, 32, 48), dtype=torch.uint8))
+    """A target larger than half the mosaic (it raised before the full
+    demosaic was ported) takes the full-resolution branch, as JAX's
+    pipeline does: equal within 1e-5."""
+    raw = _mosaic((1, 32, 48), seed=2)
+    pipe = make_device_pipeline(MEAN, STD, resize_to=(20, 30), bayer=True,
+                                dtype=torch.float32)
+    want = np.asarray(jax_pipeline(MEAN, STD, resize_to=(20, 30), bayer=True,
+                                   dtype=jnp.float32)(jnp.asarray(raw)))
+    got = pipe(torch.from_numpy(raw)).numpy()
+    assert got.shape == want.shape == (1, 20, 30, 3)
+    assert np.abs(got - want).max() <= 1e-5
 
 
 @pytest.mark.cuda

@@ -12,7 +12,9 @@
   ``metrics.jsonl`` (the JAX Trainer's keys) and ``epoch_*.pth.tar``;
   ``--auto_resume`` restarts at the saved epoch with the weights, loss
   weights and update count restored bit for bit; the refused flags (the
-  device-cache flags run: tests/test_torch_train_cache.py).
+  device-cache flags run: tests/test_torch_train_cache.py; ``--model
+  mapnet++`` and ``--camera_models_dir`` too: tests/test_torch_mapnetpp.py,
+  tests/test_torch_robotcar_rgb.py).
 - ``cli.eval --weights`` on a port checkpoint and on an upstream
   ``.pth.tar``; ``load_weights`` of trunk-only imports.
 """
@@ -226,10 +228,8 @@ def resumed_datasets():
 @pytest.mark.parametrize("extra,message", [
     (["--device_cache", "shard"], "item 17"),
     (["--native_loader"], "item 15"),
-    (["--camera_models_dir", "cams"], "item 14"),
     (["--distributed"], "item 17"),
     (["--tensorboard"], "item 18"),
-    (["--model", "mapnet++"], "item 13"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, capsys, extra, message):
     ini = _synth_ini(tmp_path, 1)
