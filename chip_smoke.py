@@ -154,6 +154,28 @@ prints no result line):
    its CUDA-event time per 60-frame batch beside K4's path and its peak
    memory at 60 and 120 frames, then one train epoch and one eval through
    the CLIs.
+10. The native decoder and serving. (a) ``geomapnet_tpu_torch.native``
+   built from this checkout with g++ (the command, its seconds, the batch
+   reader it chose). Where it builds: decode + resize ms a frame at 1, 4 and
+   all threads on phase 4's 500 frames against PIL's, the ``--native_loader``
+   eval's images/s and ``--device_cache --native_loader``'s upload beside
+   phase 4's (frames byte-equal to the decode on the CPU, poses finite),
+   and phase 8's 400 mosaics through ``decode_batch_gray``. Where it cannot
+   build (no libpng / libjpeg headers), it prints ``native decoder: not
+   buildable on this host: <the compiler's first error>``, and
+   ``--native_loader`` must fail with that message (no PIL in its place).
+   (b) ``geomapnet_tpu_torch.serving`` artifacts of MapNet ResNet-34
+   (configs/mapnet.ini, T 3) at 256x341 with the uint8 normalize fused:
+   export, size, load on the card; batches 1, 7 and 20 against the eager
+   model (float32 within 1e-5 of the largest translation, bf16 within the
+   bf16 tolerance); the float32 artifact also loads on the CPU (batch 1
+   within 1e-4); the int8 serving configuration (calibrated on 2 batches,
+   int8 heads, fused requant) with every int8 activation bit-equal to the
+   in-process fused forward, poses within 1e-6, and K1 36 / K2 1 launches a
+   forward; CUDA-event ms a 60-frame batch, artifact and eager. (c) a
+   raw-Bayer artifact (the K4 pipeline fused) equal to the eager pipeline +
+   model, one K4 launch a forward. (d) ``cli.tools`` export_model (equal to
+   (b)'s float32 artifact) and time_imload on the card.
 
 The line before the last is a JSON object with every kernel's launches on
 its main path, error, times and bound; the last line is
@@ -2443,6 +2465,356 @@ def check_camera_models(root: Path, tmp: Path, config_file: Path,
     return dict(ms=ms, k4_ms=k4_ms, gap=gap, peaks=peaks,
                 train_images_per_s=st["images"] / st["secs"])
 
+# ---------------------------------------------------------------- phase 10
+
+
+def check_native_decoder(p4: dict, rc_root: Path, upload8: dict,
+                         card: str) -> dict:
+    """Phase 10 (a): the native decoder built from this checkout with g++.
+    Where it builds: decode ms per frame at 1, 4 and all threads against
+    PIL's decode + resize, the ``--native_loader`` eval and
+    ``--device_cache --native_loader`` upload (frames byte-equal to the
+    native decode on the CPU), and phase 8's 400 mosaics through
+    ``decode_batch_gray``. Where it does not (no libpng / libjpeg headers),
+    ``--native_loader`` must fail with the compiler's message: the JAX
+    package's contract, no PIL in its place."""
+    import os
+
+    from geomapnet_tpu_torch import native
+    from geomapnet_tpu_torch.cli import eval as cli_eval
+    from geomapnet_tpu_torch.data.sevenscenes import SevenScenes
+    from geomapnet_tpu_torch.data.transforms import ImageTransform
+    from geomapnet_tpu_torch.native import build as native_build
+
+    print("native decoder: " + " ".join(
+        native_build.command(native_build.library_path())))
+    t0 = time.time()
+    try:
+        native_build.build()
+        error = None
+    except native_build.BuildError as e:
+        error = str(e)
+    build_secs = time.time() - t0
+    if error is not None:
+        first = error.strip().splitlines()[0]
+        print(f"native decoder: g++ failed after {build_secs:.2f} s")
+        print(f"native decoder: not buildable on this host: {first}")
+        if native.available():
+            raise AssertionError("the library loaded after a failed build")
+        for extra in ([], ["--device_cache"]):
+            try:
+                cli_eval.main(p4["argv"] + ["--native_loader"] + extra)
+            except RuntimeError as e:
+                if first not in str(e):
+                    raise AssertionError(f"--native_loader failed with "
+                                         f"another message: {e}") from e
+                print(f"--native_loader {' '.join(extra)}: refused with the "
+                      f"compiler's message (no PIL in its place)")
+            else:
+                raise AssertionError("--native_loader ran without the "
+                                     "native decoder")
+        return {"buildable": False, "error": first}
+    if not native.available():
+        raise AssertionError(f"built, but not loadable: "
+                             f"{native.build_error()}")
+    print(f"native decoder: built in {build_secs:.2f} s, batch-read backend "
+          f"{native.io_backend()} ({card})")
+    data = p4["root"] / "deepslam" / "7Scenes"
+    assets = p4["root"] / "assets" / "7Scenes"
+    paths = SevenScenes("heads", str(data), train=False,
+                        asset_dir=str(assets)).c_imgs
+    out = {"buildable": True, "backend": native.io_backend()}
+    for threads in (1, 4, os.cpu_count()):
+        t0 = time.time()
+        frames, ok = native.decode_batch(paths, 256, 341, n_threads=threads)
+        ms = (time.time() - t0) / len(paths) * 1e3
+        if not ok.all():
+            raise AssertionError("native decode flagged frames")
+        out[f"native_ms_{threads}"] = ms
+        print(f"native decode + resize 480x640 -> 256x341, {threads} "
+              f"threads: {ms:.3f} ms a frame ({len(paths)} frames)")
+    pil = SevenScenes("heads", str(data), train=False, asset_dir=str(assets),
+                      transform=ImageTransform(resize=256, keep_uint8=True))
+    n = 100
+    t0 = time.time()
+    pil.get_images(list(range(n)))
+    out["pil_ms"] = (time.time() - t0) / n * 1e3
+    print(f"PIL decode + resize (the loader's transform): "
+          f"{out['pil_ms']:.3f} ms a frame ({n} frames)")
+    a = p4["runs"]["a_loader_f32"]
+    loader = cli_eval.main(p4["argv"] + ["--native_loader"])
+    cache = cli_eval.main(p4["argv"] + ["--native_loader", "--device_cache"])
+    for name, res in (("loader", loader), ("device cache", cache)):
+        if not np.isfinite(res["pred_poses"]).all():
+            raise AssertionError(f"--native_loader {name}: non-finite poses")
+    got = cache["device_frames"].cpu().numpy()
+    if not np.array_equal(got, frames):
+        raise AssertionError("uploaded frames differ from the native decode "
+                             "on the CPU")
+    b = p4["runs"]["b_cache_f32"]
+    print(f"--native_loader loader f32: {loader['images_per_sec']:.1f} "
+          f"images/s (phase 4 (a), PIL: {a['images_per_sec']:.1f}); "
+          f"--device_cache upload {cache['upload_secs']:.2f} s (phase 4 "
+          f"(b): {b['upload_secs']:.2f} s), frames byte-equal to the CPU "
+          f"decode; median translation {loader['median_t']:.4f} (PIL "
+          f"{a['median_t']:.4f}) ({card})")
+    mosaics = sorted((rc_root / "deepslam" / "RobotCar" / "loop").glob(
+        "*/stereo/centre/*.png"))
+    t0 = time.time()
+    _, ok = native.decode_batch_gray(mosaics, 960, 1280,
+                                     n_threads=os.cpu_count())
+    secs = time.time() - t0
+    if not ok.all():
+        raise AssertionError("mosaics flagged")
+    print(f"{len(mosaics)} RobotCar mosaics through decode_batch_gray: "
+          f"{secs:.2f} s (phase 8 uploads {upload8}) ({card})")
+    out.update(loader=loader["images_per_sec"], upload=cache["upload_secs"],
+               mosaic_secs=secs)
+    return out
+
+
+def _int8_activations(infer, x) -> tuple:
+    """The artifact's int8 activations in graph order (the pooled stem
+    (K2), each block's residual conv (K1)) and its poses."""
+    acts = []
+
+    class Capture(torch.fx.Interpreter):
+        def call_function(self, target, args, kwargs):
+            res = super().call_function(target, args, kwargs)
+            if target is torch.ops.geomapnet.int8_maxpool3x3s2.default or (
+                    target is torch.ops.geomapnet.int8_conv.default
+                    and args[8] == "residual"):
+                acts.append(res)
+            return res
+
+    with torch.inference_mode():
+        poses = Capture(infer.module).run(x)
+    return poses, acts
+
+
+def _in_process_activations(net, preprocess, x) -> tuple:
+    """The in-process fused forward's pooled stem and block outputs."""
+    from geomapnet_tpu_torch.models import quant
+
+    acts = []
+    pool, block = quant.int8_maxpool3x3s2, quant._fused_basic_block
+    quant.int8_maxpool3x3s2 = lambda *a: acts.append(pool(*a)) or acts[-1]
+    quant._fused_basic_block = \
+        lambda *a: acts.append(block(*a)) or acts[-1]
+    try:
+        with torch.inference_mode():
+            poses = quant.mapnet_apply_int8(net, preprocess(x), fused=True)
+    finally:
+        quant.int8_maxpool3x3s2, quant._fused_basic_block = pool, block
+    return poses, acts
+
+
+def check_serving(p4: dict, npz: Path, config, rc_root: Path, tmp: Path,
+                  card: str) -> dict:
+    """Phase 10 (b)-(d): serving artifacts (``geomapnet_tpu_torch.serving``)
+    of MapNet ResNet-34 at 256x341 with the uint8 normalize fused, float32,
+    bf16 and the int8 serving configuration; a raw-Bayer artifact (the
+    demosaic kernel's operator inside); ``cli.tools`` export_model and
+    time_imload. Returns the kernels' launches in this phase's artifacts."""
+    from geomapnet_tpu_torch import serving
+    from geomapnet_tpu_torch.cli import builders
+    from geomapnet_tpu_torch.cli import tools as cli_tools
+    from geomapnet_tpu_torch.data.robotcar import RobotCar
+    from geomapnet_tpu_torch.models import quant
+    from geomapnet_tpu_torch.models.flax_import import (
+        load_npz,
+        state_dict_to_variables,
+        variables_to_state_dict,
+    )
+    from geomapnet_tpu_torch.ops import cuda_image, cuda_quant
+
+    B, T = config.batch_size, config.steps
+    assets = str(p4["root"] / "assets")
+    frames = p4["runs"]["b_cache_f32"]["device_frames"]   # (500, 256, 341, 3)
+    variables = load_npz(str(npz))
+
+    def mapnet(dtype):
+        model, _ = builders.build_model("mapnet", config, trunk="resnet34",
+                                        dtype=dtype)
+        model.posenet.load_state_dict(variables_to_state_dict(variables))
+        return model.to(device="cuda",
+                        memory_format=torch.channels_last).eval()
+
+    def tuples(b):
+        return frames.narrow(0, 0, b * T).view(b, T, *frames.shape[1:])
+
+    def export_load(name, model, **kw):
+        t0 = time.time()
+        blob = serving.export_inference(model, None, (T, 256, 341, 3),
+                                        dtype=torch.uint8, **kw)
+        export_s = time.time() - t0
+        path = tmp / f"{name}.pt2"
+        path.write_bytes(blob)
+        t0 = time.time()
+        infer = serving.load_inference(path, "cuda")
+        torch.cuda.synchronize()
+        print(f"artifact {name}: export {export_s:.2f} s, "
+              f"{len(blob) / 2 ** 20:.1f} MB, load on the card "
+              f"{time.time() - t0:.2f} s")
+        return infer, path
+
+    def zero():
+        cuda_image.launches = 0
+        for k in cuda_quant.launches:
+            cuda_quant.launches[k] = 0
+
+    counts = {"K4": 0, "int8_conv": 0, "int8_maxpool3x3s2": 0}
+
+    def count():
+        counts["K4"] += cuda_image.launches
+        counts["int8_conv"] += cuda_quant.launches["int8_conv"]
+        counts["int8_maxpool3x3s2"] += cuda_quant.launches[
+            "int8_maxpool3x3s2"]
+
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        model = mapnet(dtype)
+        pre = builders.build_device_preprocess("7Scenes", "heads", assets,
+                                               dtype=dtype)
+        infer, path = export_load(
+            name, model, preprocess=pre,
+            platforms=("cuda", "cpu") if name == "f32" else None)
+        for b in (1, 7, 20):
+            x = tuples(b)
+            with torch.inference_mode():
+                want = model(pre(x)).float().cpu().numpy()
+            got = infer(x).float().cpu().numpy()
+            scale = float(np.abs(want[..., :3]).max())
+            gap = float(np.abs(got - want).max())
+            tol = 1e-5 if name == "f32" else BF16_TOL
+            print(f"artifact {name} batch {b}: max abs diff to the eager "
+                  f"model {gap} = {gap / scale} of the largest translation "
+                  f"(bound {tol}), bit-identical {np.array_equal(got, want)}")
+            if got.shape != (b, T, 6) or gap > tol * scale:
+                raise AssertionError(f"artifact {name} disagrees")
+        if name == "f32":
+            cpu = serving.load_inference(path, "cpu")
+            x1 = tuples(1)
+            got_cpu = cpu(x1.cpu()).numpy()
+            card_out = infer(x1).cpu().numpy()
+            rel = float(np.abs(got_cpu - card_out).max()
+                        / np.abs(card_out[..., :3]).max())
+            print(f"artifact f32 loaded on the CPU, batch 1: {rel} of the "
+                  f"largest translation from the card's (bound 1e-4)")
+            if rel > 1e-4:
+                raise AssertionError("the CPU load disagrees")
+            del cpu
+        x60 = tuples(B)
+        with torch.inference_mode():
+            art_ms = cuda_ms(lambda: infer(x60), reps=5, groups=3)
+            eager_ms = cuda_ms(lambda: model(pre(x60)), reps=5, groups=3)
+        out[name] = dict(ms=art_ms, eager_ms=eager_ms)
+        print(f"artifact {name}: {art_ms:.3f} ms a {B * T}-frame batch, "
+              f"eager {eager_ms:.3f} ms (CUDA events) ({card})")
+        del infer, model
+
+    # int8: the serving configuration, calibrated on 2 batches
+    model = mapnet(torch.float32)
+    pre = builders.build_device_preprocess("7Scenes", "heads", assets)
+    calib = [pre(frames.narrow(0, i * B * T, B * T).view(B, T,
+                                                         *frames.shape[1:]))
+             for i in range(CALIBRATE)]
+    infer, _ = export_load("int8_fused", model, preprocess=pre,
+                           quantize=True, calib_data=calib,
+                           quantize_heads=True, fuse_requant=True)
+    qtree = quant.calibrate_activation_scales(
+        quant.quantize_posenet_variables(
+            state_dict_to_variables(model.posenet.state_dict()),
+            tuple(model.posenet.feature_extractor.stage_sizes),
+            quantize_heads=True), calib)
+    net = quant.QuantizedPoseNet(qtree, torch.bfloat16, fused=True).cuda()
+    for b in (1, 7, 20):
+        x = tuples(b)
+        zero()
+        got, acts = _int8_activations(infer, x)
+        n_k1, n_k2 = (cuda_quant.launches["int8_conv"],
+                      cuda_quant.launches["int8_maxpool3x3s2"])
+        count()
+        if (n_k1, n_k2) != (36, 1):
+            raise AssertionError(f"int8 artifact launched K1 {n_k1} and K2 "
+                                 f"{n_k2} times in a forward")
+        want, ref = _in_process_activations(net, pre, x)
+        if len(acts) != len(ref) or not all(
+                torch.equal(a, r) for a, r in zip(acts, ref)):
+            raise AssertionError("int8 activations differ from the "
+                                 "in-process fused forward")
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        gap = float(np.abs(got - want).max())
+        scale = float(np.abs(want[..., :3]).max())
+        print(f"artifact int8_fused batch {b}: {len(acts)} int8 activations "
+              f"bit-equal to the in-process fused forward; poses {gap} = "
+              f"{gap / scale} of the largest translation (bound 1e-6); K1 "
+              f"{n_k1}, K2 {n_k2} launches")
+        if gap > 1e-6 * scale:
+            raise AssertionError("int8 artifact poses disagree")
+    x60 = tuples(B)
+    with torch.inference_mode():
+        art_ms = cuda_ms(lambda: infer(x60), reps=5, groups=3)
+        eager_ms = cuda_ms(
+            lambda: quant.mapnet_apply_int8(net, pre(x60), fused=True),
+            reps=5, groups=3)
+    out["int8_fused"] = dict(ms=art_ms, eager_ms=eager_ms)
+    print(f"artifact int8_fused: {art_ms:.3f} ms a {B * T}-frame batch, "
+          f"eager {eager_ms:.3f} ms (CUDA events) ({card})")
+    del infer, net
+
+    # (c) a raw-Bayer artifact: the demosaic kernel's operator inside
+    raw_pre = builders.build_raw_device_preprocess(
+        "loop", str(rc_root / "assets"))
+    mosaics = RobotCar("loop", str(rc_root / "deepslam" / "RobotCar"),
+                       train=False, raw_bayer=True,
+                       asset_dir=str(rc_root / "assets" / "RobotCar")
+                       ).get_images(list(range(2 * T)))
+    raw = torch.from_numpy(np.stack(mosaics)).view(2, T, 960, 1280).cuda()
+    t0 = time.time()
+    blob = serving.export_inference(model, None, (T, 960, 1280),
+                                    dtype=torch.uint8, preprocess=raw_pre)
+    infer = serving.load_inference(blob, "cuda")
+    print(f"artifact raw_bayer: export + load {time.time() - t0:.2f} s")
+    zero()
+    got = infer(raw)
+    k4 = cuda_image.launches
+    count()
+    with torch.inference_mode():
+        want = model(raw_pre(raw))
+    gap = float((got - want).abs().max() / want[..., :3].abs().max())
+    print(f"artifact raw_bayer, 2 tuples of 960x1280 mosaics: {gap} of the "
+          f"largest translation from the eager pipeline + model (bound "
+          f"1e-5); K4 launches in its forward {k4}")
+    if k4 != 1 or gap > 1e-5:
+        raise AssertionError("raw-Bayer artifact")
+    del infer
+
+    # (d) the tools CLI on the card: export_model and time_imload
+    cli_tools.main([
+        "export_model", "--dataset", "7Scenes", "--scene", "heads",
+        "--asset_root", assets, "--model", "mapnet", "--trunk", "resnet34",
+        "--config_file", str(ROOT / "configs" / "mapnet.ini"),
+        "--weights", str(npz), "--output", str(tmp / "tools.pt2")])
+    tools_art = serving.load_inference(tmp / "tools.pt2")
+    f32 = serving.load_inference(tmp / "f32.pt2")
+    x = tuples(2)
+    gap = float((tools_art(x) - f32(x)).abs().max())
+    print(f"tools export_model on the card: {gap} from the f32 artifact")
+    if gap > 1e-5 * float(f32(x)[..., :3].abs().max()):
+        raise AssertionError("tools export_model disagrees")
+    del tools_art, f32
+    zero()
+    cli_tools.main(["time_imload", "--image", str(sorted(
+        (rc_root / "deepslam" / "RobotCar" / "loop").glob(
+            "*/stereo/centre/*.png"))[0]), "--number", "8", "--batch", "16"])
+    print(f"time_imload: K4 launches {cuda_image.launches} ({card})")
+    if cuda_image.launches == 0:
+        raise AssertionError("time_imload did not run the demosaic kernel")
+    count()
+    out["launches"] = counts
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2630,6 +3002,18 @@ def main() -> int:
               f"K4 path {undist['k4_ms']:.3f} ms a {MAIN_FRAMES}-frame batch;"
               f" K4 launches in (b) {pp_k4}")
 
+        # phase 10: the native decoder, serving artifacts, the tools CLI
+        t0 = time.time()
+        upload8 = {k: round(cache_runs[k]["upload_secs"], 2)
+                   for k in ("f32_k1", "bf16_k1")}
+        decoder = check_native_decoder(p4, root, upload8, card)
+        served = check_serving(p4, npz, config, root, tmp, card)
+        p10 = served["launches"]
+        print(f"phase 10: {time.time() - t0:.2f} s; native decoder "
+              f"{decoder}; artifact ms a {MAIN_FRAMES}-frame batch "
+              f"{ {k: v for k, v in served.items() if k != 'launches'} } "
+              f"({card}); launches {p10}")
+
     f32 = kernel["float32"]
     # K4's bound: each mosaic byte read once, each float32 output written
     # once (60x960x1280 uint8 -> 60x3x480x640 float32)
@@ -2641,7 +3025,7 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": launches + cache_k4 + pp_k4,
+        "launches": launches + cache_k4 + pp_k4 + p10["K4"],
         "max_abs_err": max(k["max_abs_err"] for k in kernel.values()),
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -2653,7 +3037,7 @@ def main() -> int:
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": int8_launches["int8_conv"],
+        "launches": int8_launches["int8_conv"] + p10["int8_conv"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -2665,7 +3049,8 @@ def main() -> int:
         "route": "cuda",
         "source": K2_SOURCE,
         "replaces": K2_REPLACES,
-        "launches": int8_launches["int8_maxpool3x3s2"],
+        "launches": (int8_launches["int8_maxpool3x3s2"]
+                     + p10["int8_maxpool3x3s2"]),
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

@@ -185,6 +185,7 @@ def build_frame_dataset(
     asset_root: str = "data",
     vo_lib: str | None = None,
     raw_bayer: bool = False,
+    native_loader: bool = False,
     cache_gb: float = 0.0,
 ):
     """Construct one frame dataset by name.
@@ -192,7 +193,11 @@ def build_frame_dataset(
     ``real`` loads the VO poses of ``vo_lib`` (7Scenes: ``config.vo_lib``
     when None; RobotCar: "stereo" when None); ``skip_images`` builds a
     pose-only dataset (the ground truth of a real PGO run), whose RobotCar
-    input type does not matter. ``cache_gb`` wraps the on-disk datasets in a
+    input type does not matter. ``native_loader`` decodes (and resizes) the
+    colour frames of 7Scenes and RobotCar's processed RGB frames with the
+    C++ batch decoder (:mod:`geomapnet_tpu_torch.native`) instead of PIL;
+    it raises when the decoder cannot be built on this host. ``cache_gb``
+    wraps the on-disk datasets in a
     decoded-frame RAM cache
     (:class:`~geomapnet_tpu_torch.data.cache.CachedScene`): image decode is
     paid once per process. Skipped with a message when the transform
@@ -201,7 +206,7 @@ def build_frame_dataset(
     config = config or ExperimentConfig()
     built = _build_frame_dataset(
         dataset, scene, data_path, train, config, transform, real,
-        skip_images, asset_root, vo_lib, raw_bayer,
+        skip_images, asset_root, vo_lib, raw_bayer, native_loader,
     )
     if cache_gb > 0 and dataset != "synth" and not skip_images:
         from ..data.cache import CachedScene
@@ -215,7 +220,7 @@ def build_frame_dataset(
 
 def _build_frame_dataset(
     dataset, scene, data_path, train, config, transform, real, skip_images,
-    asset_root, vo_lib, raw_bayer,
+    asset_root, vo_lib, raw_bayer, native_loader,
 ):
     if dataset == "synth":
         from ..data.synthetic import SyntheticScene
@@ -232,6 +237,7 @@ def _build_frame_dataset(
             transform=transform, seed=config.seed, real=real,
             skip_images=skip_images, vo_lib=vo_lib or config.vo_lib,
             asset_dir=str(Path(asset_root) / "7Scenes"),
+            use_native=native_loader,
         )
     if dataset == "RobotCar":
         from ..data.robotcar import RobotCar
@@ -242,6 +248,7 @@ def _build_frame_dataset(
             real=real, skip_images=skip_images, vo_lib=vo_lib or "stereo",
             asset_dir=str(Path(asset_root) / "RobotCar"),
             raw_bayer=raw_bayer,
+            use_native=native_loader and not raw_bayer,
         )
     raise ValueError(f"unknown dataset {dataset}")
 
@@ -255,11 +262,13 @@ def build_datasets(
     asset_root: str = "data",
     keep_uint8: bool = False,
     raw_bayer: bool = False,
+    native_loader: bool = False,
     cache_gb: float = 0.0,
 ):
     """(train_set, val_set) for a model family (upstream
-    scripts/train.py:131-156); ``cache_gb`` is a per-split decoded-frame RAM
-    budget (see :func:`build_frame_dataset`).
+    scripts/train.py:131-156); ``native_loader`` and ``cache_gb`` (a
+    per-split decoded-frame RAM budget) as :func:`build_frame_dataset`
+    takes them.
 
     MapNet++ trains on :class:`~geomapnet_tpu_torch.data.composite.MFOnline`
     items and validates on nothing (``val_set`` None): the labeled train
@@ -278,7 +287,8 @@ def build_datasets(
         return build_frame_dataset(
             dataset, scene, data_path, train, config, transform=transform,
             real=real, skip_images=skip_images, asset_root=asset_root,
-            vo_lib=vo_lib, raw_bayer=raw_bayer, cache_gb=cache_gb,
+            vo_lib=vo_lib, raw_bayer=raw_bayer, native_loader=native_loader,
+            cache_gb=cache_gb,
         )
 
     if model_name == "posenet":

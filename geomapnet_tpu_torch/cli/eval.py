@@ -55,8 +55,14 @@ Ported so far, with PoseNet, MapNet or MapNet++ weights from a port checkpoint
   seed and the batch index: the loader path and the device-cache tuple
   epoch give the same draws.
 
-The native decoder (``--native_loader``) and the trajectory plot are not
-ported yet; the flag is refused with the ROADMAP.md item that ports it.
+- The native decoder (``--native_loader``): colour frames decoded and
+  resized by the C++ batch decoder (:mod:`geomapnet_tpu_torch.native`), one
+  call per batch, instead of PIL; the run fails with the compiler's message
+  on a host where the decoder cannot be built.
+
+The frame-sharded device cache (``--device_cache shard``) is refused with
+the ROADMAP.md item that ports it; the trajectory plot of ``--output_dir``
+is not written.
 """
 
 from __future__ import annotations
@@ -450,13 +456,6 @@ def _calibration_batches(dataset, is_tuple: bool, frame_buf, idx_mat,
         loader.close()   # stops its prefetch thread
 
 
-# flags of the JAX CLI that the port refuses, and the ROADMAP.md item that
-# ports each
-_UNPORTED_FLAGS = {
-    "native_loader": "Queue 1, item 15 (native decoder)",
-}
-
-
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(
         description="Evaluation script for PoseNet and MapNet (PyTorch)"
@@ -514,9 +513,15 @@ def main(argv=None) -> dict:
         "each frame once",
     )
     parser.add_argument(
-        "--device_cache", action="store_true",
+        "--native_loader", action="store_true",
+        help="decode+resize images with the C++ batch decoder "
+        "(geomapnet_tpu_torch.native) instead of PIL: the fast host IO path")
+    parser.add_argument(
+        "--device_cache", nargs="?", const=True, default=False,
+        choices=["shard"],
         help="upload the whole scene's frames to the device once and run "
-        "the epoch from there (no per-batch decode or upload)",
+        "the epoch from there (no per-batch decode or upload); 'shard' "
+        "(the frame-sharded cache over several devices) is not ported yet",
     )
     parser.add_argument(
         "--no_frame_dedup", action="store_true",
@@ -545,14 +550,11 @@ def main(argv=None) -> dict:
         help="with --quantize + --calibrate: int8 dataflow, requantization "
         "fused into each conv's epilogue; with --device_cache the scene is "
         "cached as prequantized space-to-depth int8 rows")
-    # the JAX CLI's flags that are not ported yet: refused below
-    for flag, where in _UNPORTED_FLAGS.items():
-        parser.add_argument(f"--{flag}", action="store_true",
-                            help=f"not ported yet (ROADMAP.md, {where})")
     args = parser.parse_args(argv)
-    for flag, where in _UNPORTED_FLAGS.items():
-        if getattr(args, flag):
-            parser.error(f"--{flag} is not ported yet (ROADMAP.md, {where})")
+    if args.device_cache == "shard":
+        parser.error("--device_cache shard is not ported yet (ROADMAP.md, "
+                     "Queue 1, item 17: the frame-sharded cache needs "
+                     "several GPUs)")
     if args.raw_bayer and args.dataset != "RobotCar":
         parser.error("--raw_bayer requires --dataset RobotCar")
     if Path(args.weights).suffix not in (".npz", ".tar", ".pth"):
@@ -601,7 +603,8 @@ def main(argv=None) -> dict:
         real=config.real if use_tuples else False,
         asset_root=args.asset_root,
         vo_lib=config.vo_lib if args.pose_graph else None,
-        raw_bayer=args.raw_bayer, cache_gb=args.cache_frames,
+        raw_bayer=args.raw_bayer, native_loader=args.native_loader,
+        cache_gb=args.cache_frames,
     )
     if use_tuples:
         gt_frames = None

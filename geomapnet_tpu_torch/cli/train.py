@@ -29,7 +29,10 @@ steps per launch (a CUDA graph on the card) and ``--bn_bf16_bwd`` gives
 BatchNorm the bfloat16 backward, each with the JAX CLI's meaning. RobotCar
 trains on its processed RGB frames, or with ``--raw_bayer`` on the raw
 mosaics, demosaiced on the device (and undistorted there with
-``--camera_models_dir``).
+``--camera_models_dir``). ``--native_loader`` decodes (and resizes) the
+frames with the C++ batch decoder (:mod:`geomapnet_tpu_torch.native`)
+instead of PIL, also for the device cache's upload; it fails with the
+compiler's message where the decoder cannot be built.
 
 Flags of the JAX CLI that the port does not run yet are refused, each
 naming the ROADMAP.md item that ports it (``--device_cache shard`` among
@@ -63,7 +66,6 @@ __all__ = ["main"]
 # flags of the JAX CLI that the port refuses, and the ROADMAP.md item that
 # ports each
 _UNPORTED_FLAGS = {
-    "native_loader": "Queue 1, item 15 (native decoder)",
     "distributed": "Queue 1, item 17 (multi-GPU)",
     "tensorboard": "Queue 1, item 18 (aux; the card's machine has no "
                    "tensorboard package)",
@@ -121,6 +123,10 @@ def main(argv=None) -> Trainer:
         "--camera_models_dir", type=str, default=None,
         help="RobotCar camera model dir for on-device undistortion with "
         "--raw_bayer (omit to skip undistortion)")
+    parser.add_argument(
+        "--native_loader", action="store_true",
+        help="decode+resize images with the C++ batch decoder "
+        "(geomapnet_tpu_torch.native) instead of PIL: the fast host IO path")
     parser.add_argument(
         "--cache_frames", type=float, default=0.0, metavar="GB",
         help="decoded-frame RAM cache per split: decode is paid once "
@@ -200,7 +206,8 @@ def main(argv=None) -> Trainer:
         args.model, args.dataset, args.scene, data_path, config,
         asset_root=args.asset_root,
         keep_uint8=preprocess is not None and not args.raw_bayer,
-        raw_bayer=args.raw_bayer, cache_gb=args.cache_frames,
+        raw_bayer=args.raw_bayer, native_loader=args.native_loader,
+        cache_gb=args.cache_frames,
     )
 
     name = experiment_name(args.dataset, args.scene, args.model,

@@ -1,9 +1,9 @@
 """Oxford RobotCar scene: processed RGB frames or raw Bayer mosaics.
 
-A copy of :class:`geomapnet_tpu.data.robotcar.RobotCar` without its native
-decoder (ROADMAP.md, Queue 1, item 15); it reads the same disk layout (upstream dataset_loaders/robotcar.py): a scene
-directory (``data_path/<scene>``) with ``train_split.txt`` /
-``test_split.txt`` naming sequence dirs, each holding ``stereo.timestamps``,
+A copy of :class:`geomapnet_tpu.data.robotcar.RobotCar`; it reads the same
+disk layout (upstream dataset_loaders/robotcar.py): a scene directory
+(``data_path/<scene>``) with ``train_split.txt`` / ``test_split.txt``
+naming sequence dirs, each holding ``stereo.timestamps``,
 ``gps/ins.csv`` (ground truth), ``vo/vo.csv`` or ``gps/gps_ins.csv`` (the
 "real" poses) and ``stereo/centre/<ts>.png`` images; an assets dir with the
 scene's ``pose_stats.txt`` and per-sequence ``<vo_lib>_vo_stats.pkl``
@@ -18,6 +18,15 @@ GBRG mosaics, uint8 (H, W), which the device pipeline
 [undistorts,] resizes and normalizes. Poses are normalized by the
 ground-truth translation mean/std, written when the ground-truth train
 split is built and read back otherwise (upstream robotcar.py:89-99).
+
+Where the JAX package decodes through its C++ library, so does this copy
+(:mod:`geomapnet_tpu_torch.native`): mosaics go through
+``decode_batch_gray`` whenever the library is available (one call per
+batch), and processed RGB frames through ``decode_image`` /
+``decode_batch`` (decode and resize to ``native_size``) with
+``use_native``. A mosaic is a lossless PNG: reading it gives the same
+pixels either way. Without the library, mosaics decode through PIL on
+``num_workers`` threads; an explicit ``use_native`` then raises.
 """
 
 from __future__ import annotations
@@ -128,6 +137,10 @@ class RobotCar:
         the device pipeline; ``transform`` is ignored
     :param raw_size: expected (H, W) of the mosaics (RobotCar Grasshopper2:
         960x1280); a mosaic of another shape counts as corrupt
+    :param use_native: decode and resize the processed RGB frames with the
+        C++ decoder instead of PIL (raises when the library cannot be built
+        on this host)
+    :param native_size: (H, W) for the native decode path
     """
 
     def __init__(
@@ -146,7 +159,13 @@ class RobotCar:
         camera_models_dir: str | None = None,
         raw_bayer: bool = False,
         raw_size: tuple[int, int] = (960, 1280),
+        use_native: bool = False,
+        native_size: tuple[int, int] | None = None,
     ):
+        if use_native and not (raw_bayer or skip_images):
+            from .. import native
+
+            native.require()   # a missing library is never silent
         np.random.seed(seed)
         self.transform = transform
         self.target_transform = target_transform
@@ -154,6 +173,8 @@ class RobotCar:
         self.raw_bayer = raw_bayer
         self.raw_size = tuple(raw_size)
         self.skip_images = skip_images
+        self.use_native = use_native
+        self.native_size = native_size or (256, 341)
         scene_dir = Path(os.path.expanduser(data_path)) / scene
         asset_scene_dir = Path(asset_dir or Path("data") / "RobotCar") / scene
 
@@ -195,7 +216,13 @@ class RobotCar:
             return None
         from PIL import Image
 
+        from .. import native
+
         if self.raw_bayer:
+            if native.available():
+                batch, ok = native.decode_batch_gray(
+                    [self.imgs[index]], *self.raw_size, n_threads=1)
+                return batch[0] if ok[0] else None
             try:
                 raw = np.asarray(Image.open(self.imgs[index]))
             except (IOError, OSError) as e:
@@ -204,6 +231,13 @@ class RobotCar:
             if raw.ndim != 2 or raw.shape != self.raw_size:
                 return None
             return raw.astype(np.uint8)
+        if self.use_native:
+            img = native.decode_image(self.imgs[index], *self.native_size)
+            if img is None:
+                return None
+            if self.transform is not None:
+                return self.transform(img)
+            return img
         if self.undistort:
             img = load_stereo_image(self.imgs[index], self._camera_model)
             if img is None:
@@ -220,12 +254,27 @@ class RobotCar:
         return np.asarray(img)
 
     def get_images(self, indices, num_workers: int = 4) -> list:
-        """:meth:`get_image` for many frames. Mosaic PNG decodes release the
-        GIL, so ``num_workers`` threads decode them in parallel; RGB frames
-        load in order (a jittering transform draws from one generator)."""
+        """:meth:`get_image` for many frames: mosaics and native RGB frames
+        through one C++ call on ``num_workers`` threads; without the
+        library, mosaics on ``num_workers`` PIL threads (PNG decodes release
+        the GIL). RGB frames otherwise load in order (a jittering transform
+        draws from one generator)."""
+        from .. import native
+
         indices = [int(i) for i in indices]
         if self.skip_images:
             return [None] * len(indices)
+        if self.raw_bayer and native.available():
+            batch, ok = native.decode_batch_gray(
+                [self.imgs[i] for i in indices], *self.raw_size,
+                n_threads=num_workers)
+            return [img if good else None for img, good in zip(batch, ok)]
+        if self.use_native and not self.raw_bayer:
+            batch, ok = native.decode_batch(
+                [self.imgs[i] for i in indices], *self.native_size,
+                n_threads=num_workers)
+            return [(self.transform(img) if self.transform else img)
+                    if good else None for img, good in zip(batch, ok)]
         if not self.raw_bayer or num_workers <= 1 or len(indices) <= 1:
             return [self.get_image(i) for i in indices]
         with ThreadPoolExecutor(num_workers) as pool:

@@ -26,7 +26,10 @@ through its own :class:`geomapnet_tpu_torch.ops.cuda_quant.PreparedConv`
 (launch arguments prepared once), and the fused stem's
 int8 max-pool through K2
 (:func:`geomapnet_tpu_torch.ops.cuda_quant.int8_maxpool3x3s2`); on CPU
-tensors both take their plain versions. The int8 ``fc_feat`` head's int32
+tensors both take their plain versions. While the module is traced for
+export (:mod:`geomapnet_tpu_torch.serving`), K1 and K2 are called through
+their ``torch.library`` operators instead
+(:mod:`geomapnet_tpu_torch.ops.library`). The int8 ``fc_feat`` head's int32
 product runs on ``torch._int_mm``.
 
 Rounding follows what XLA compiles the JAX source to on the CPU: the
@@ -44,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import library
 from ..ops.cuda_quant import (
     PreparedConv,
     fma_f32,
@@ -324,7 +328,11 @@ class _Site(nn.Module):
         """K1 on this site's weights (keywords as
         :func:`~geomapnet_tpu_torch.ops.cuda_quant.int8_conv`'s, less
         ``ksize``). The launch arguments are prepared at the first call and
-        again after ``.to()`` moves the buffers."""
+        again after ``.to()`` moves the buffers; while traced for export,
+        the call goes through K1's operator."""
+        if library.tracing():
+            return library.int8_conv(x, self.w, self.m, self.b, s_in,
+                                     ksize=self.ksize, **kw)
         k1 = self._k1
         if k1 is None or k1.w is not self.w or k1.m is not self.m \
                 or k1.b is not self.b:
@@ -568,7 +576,8 @@ def _trunk_forward_fused(qnet: QuantizedPoseNet, x: torch.Tensor,
     else:
         qy = c1.conv(qx.contiguous(), s_in, stride=(2, 2),
                      pad=((3, 3), (3, 3)), mode="relu_q", s_out=s1)
-    qy = int8_maxpool3x3s2(qy)
+    qy = (library.int8_maxpool3x3s2(qy) if library.tracing()
+          else int8_maxpool3x3s2(qy))
     for i, (q, stride) in enumerate(zip(blocks,
                                         _strides(qnet.stage_sizes))):
         s_out = (blocks[i + 1]["conv1"].x_scale
@@ -580,9 +589,13 @@ def _trunk_forward_fused(qnet: QuantizedPoseNet, x: torch.Tensor,
 def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 @ (K, N) int8 -> (M, N) int32 through ``torch._int_mm``;
     the CUDA path wants more than 16 rows, so fewer are zero-padded (K and
-    N must be multiples of 8 there)."""
+    N must be multiples of 8 there). A graph traced for export pads every
+    batch by 17 rows: its row count is symbolic, and it may run on either
+    device."""
     rows = a.shape[0]
-    if a.device.type == "cuda" and rows <= 16:
+    if library.tracing():
+        a = torch.cat([a, a.new_zeros((17, a.shape[1]))])
+    elif a.device.type == "cuda" and rows <= 16:
         a = torch.cat([a, a.new_zeros((32 - rows, a.shape[1]))])
     return torch._int_mm(a.contiguous(), b)[:rows]
 

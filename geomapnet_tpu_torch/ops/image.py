@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import cuda_image
+from . import cuda_image, library
 
 __all__ = [
     "box_halve",
@@ -119,6 +119,13 @@ def demosaic_half(raw: torch.Tensor) -> torch.Tensor:
     return torch.stack([r, (g0 + g1) * 0.5, b], dim=-1)
 
 
+def _cached(fn, *args) -> torch.Tensor:
+    """``fn(*args)`` from its cache; made anew while a graph is traced for
+    export (a tensor made then belongs to the trace and must not be
+    cached)."""
+    return fn.__wrapped__(*args) if library.tracing() else fn(*args)
+
+
 @functools.lru_cache(maxsize=64)
 def _float32_constant(values, device: torch.device) -> torch.Tensor:
     """``values`` (a float or a tuple) as a float32 tensor on ``device``,
@@ -132,9 +139,10 @@ def normalize(img: torch.Tensor, mean, std, dtype=torch.float32,
     """(x * scale - mean) / std over the last (channel) axis, cast to
     ``dtype``; every step in float32, as in the JAX package."""
     dev = img.device
-    out = img.to(torch.float32) * _float32_constant(float(scale), dev)
-    out = ((out - _float32_constant(tuple(map(float, mean)), dev))
-           / _float32_constant(tuple(map(float, std)), dev))
+    out = img.to(torch.float32) * _cached(_float32_constant, float(scale),
+                                          dev)
+    out = ((out - _cached(_float32_constant, tuple(map(float, mean)), dev))
+           / _cached(_float32_constant, tuple(map(float, std)), dev))
     return out.to(dtype)
 
 
@@ -173,8 +181,8 @@ def resize_bilinear_matmul(img: torch.Tensor, out_h: int, out_w: int
     """
     h, w = img.shape[-2], img.shape[-1]
     img = img.to(torch.float32)
-    wy = _resize_weights(h, out_h, img.device)    # (out_h, H)
-    wx = _resize_weights(w, out_w, img.device)    # (out_w, W)
+    wy = _cached(_resize_weights, h, out_h, img.device)    # (out_h, H)
+    wx = _cached(_resize_weights, w, out_w, img.device)    # (out_w, W)
     out = torch.matmul(wy, img)                   # (N, C, out_h, W)
     return torch.matmul(out, wx.t())              # (N, C, out_h, out_w)
 
@@ -217,8 +225,8 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int
     img = img.to(torch.float32)
     while img.shape[1] >= 2 * out_h and img.shape[2] >= 2 * out_w:
         img = box_halve(img)
-    wy = _linear_resize_weights(img.shape[1], out_h, img.device)
-    wx = _linear_resize_weights(img.shape[2], out_w, img.device)
+    wy = _cached(_linear_resize_weights, img.shape[1], out_h, img.device)
+    wx = _cached(_linear_resize_weights, img.shape[2], out_w, img.device)
     return torch.einsum("oh,nhwc,pw->nopc", wy, img, wx)
 
 
@@ -257,12 +265,15 @@ def make_device_pipeline(
     def maps_for(device: torch.device) -> tuple:
         # the maps move to each device once: a copy from the host inside a
         # CUDA graph capture would fail
-        if device not in maps_on:
-            y0, x0, fy, fx = undistort_maps
-            maps_on[device] = tuple(
-                torch.from_numpy(np.asarray(a)).to(device)
-                for a in (y0.astype(np.int64), x0.astype(np.int64), fy, fx))
-        return maps_on[device]
+        if device in maps_on:
+            return maps_on[device]
+        y0, x0, fy, fx = undistort_maps
+        maps = tuple(torch.from_numpy(np.asarray(a)).to(device)
+                     for a in (y0.astype(np.int64), x0.astype(np.int64), fy,
+                               fx))
+        if not library.tracing():   # a traced graph's tensors stay its own
+            maps_on[device] = maps
+        return maps
 
     def geometry_normalize(img: torch.Tensor) -> torch.Tensor:
         if undistort_maps is not None:
@@ -288,8 +299,10 @@ def make_device_pipeline(
         if (undistort_maps is None and resize_to is not None
                 and resize_to[0] * 2 <= raw.shape[1]
                 and resize_to[1] * 2 <= raw.shape[2]):
-            img = cuda_image.demosaic_half_normalize(
-                raw.contiguous(), mean, std, dtype=torch.float32, planar=True)
+            kernel = (library.demosaic_half_normalize if library.tracing()
+                      else cuda_image.demosaic_half_normalize)
+            img = kernel(raw.contiguous(), mean, std, dtype=torch.float32,
+                         planar=True)
             img = resize_bilinear_matmul(img, *resize_to)
             out = img.permute(0, 2, 3, 1).to(dtype)
         else:

@@ -213,17 +213,23 @@ def test_cli_refuses_silent_cpu(tmp_path, monkeypatch):
         ])
 
 
-def test_unported_datasets_raise(tmp_path):
-    """The native decoder is refused naming ROADMAP.md. RobotCar's
-    processed RGB frames are ported: the builders make the RGB dataset
-    (tests/test_torch_robotcar_rgb.py holds it to JAX's), also for VO
-    ("real") poses; a pose-only RobotCar dataset (the ground truth of a PGO
-    run) needs no input type."""
+def test_unported_datasets_raise(tmp_path, monkeypatch):
+    """Every dataset input is ported. The native decoder raises only where
+    it cannot be built, with the compiler's message (here made to fail);
+    tests/test_torch_native.py holds it to JAX's. RobotCar's processed RGB
+    frames: the builders make the RGB dataset (tests/test_torch_robotcar_
+    rgb.py holds it to JAX's), also for VO ("real") poses; a pose-only
+    RobotCar dataset (the ground truth of a PGO run) needs no input type."""
+    from geomapnet_tpu_torch import native
     from geomapnet_tpu_torch.data.sevenscenes import SevenScenes
     from test_torch_eval_pgo import write_stereo_vo
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SevenScenes("heads", str(tmp_path), True, use_native=True)
+    with monkeypatch.context() as m:
+        m.setattr(native, "_TRIED", True)
+        m.setattr(native, "_LIB", None)
+        m.setattr(native, "_ERROR", "g++: png.h: No such file or directory")
+        with pytest.raises(RuntimeError, match="png.h"):
+            SevenScenes("heads", str(tmp_path), True, use_native=True)
     raw, assets = write_bayer_scene(tmp_path, n=3, h=8, w=12)
     write_stereo_vo(raw, assets, n=3)
     for real in (False, True):

@@ -94,7 +94,8 @@ def test_new_modules_are_covered():
               "pgo.pose_graph", "losses.criterion", "models.torch_import",
               "train.optim", "train.state", "train.checkpoint", "train.loop",
               "utils.logger", "cli.train", "data.robotcar_sdk",
-              "data.composite"):
+              "data.composite", "native", "native.build", "serving",
+              "ops.library", "geometry.align", "cli.tools"):
         assert f"geomapnet_tpu_torch.{m}" in mods, m
 
 
@@ -731,3 +732,63 @@ def test_logger_copies(tmp_path, capsys):
             tee.close()
         assert (tmp_path / f"{name}.txt").read_text() == f"line {name}\n"
     assert capsys.readouterr().out == "line port\nline jax\n"
+
+
+def test_native_source_is_a_copy():
+    """The port compiles a byte-for-byte copy of the JAX package's decoder
+    source."""
+    assert (PKG / "native" / "imageio.cc").read_bytes() == \
+        (REPO / "geomapnet_tpu" / "native" / "imageio.cc").read_bytes()
+
+
+def test_port_never_loads_the_jax_library():
+    """A process that decodes through the port maps the port's own build
+    of the library, never ``geomapnet_tpu/native/libgeomapnet_io.so``."""
+    code = (
+        "import numpy as np\n"
+        "from geomapnet_tpu_torch import native\n"
+        "assert native.available(), native.build_error()\n"
+        "out, ok = native.decode_batch(['missing.png'], 4, 4)\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'libgeomapnet_io' not in maps\n"
+        "assert str(native.lib_path()) in maps\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+    for path in PKG.rglob("*.py"):
+        assert "libgeomapnet_io" not in path.read_text(), path
+
+
+def _align_inputs(seed=5, n=12):
+    rng = np.random.RandomState(seed)
+    R = np.stack([jax_rot.euler2mat(*e)
+                  for e in rng.uniform(-np.pi, np.pi, (n, 3))])
+    x1 = rng.randn(3, n)
+    Rg = jax_rot.euler2mat(0.3, -0.2, 1.1)
+    x2 = 1.7 * Rg @ (x1 - rng.randn(3, 1)) + 0.01 * rng.randn(3, n)
+    R2 = np.einsum("ij,njk->nik", Rg, R)
+    return x1, x2, R, R2
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("align_pts", lambda x1, x2, R1, R2: (x1, x2)),
+    ("align_3d_pts", lambda x1, x2, R1, R2: (x1, x2)),
+    ("align_2d_pts", lambda x1, x2, R1, R2: (x1[:2], x2[:2])),
+    ("align_3d_pts_noscale", lambda x1, x2, R1, R2: (x1, x2)),
+    ("align_2d_pts_noscale", lambda x1, x2, R1, R2: (x1[:2], x2[:2])),
+    ("align_camera_poses", lambda x1, x2, R1, R2: (x1, x2, R1, R2)),
+    ("align_camera_poses", lambda x1, x2, R1, R2: (x1, x2, R1, R2, True)),
+])
+def test_align_copy(fn, args):
+    """``geometry/align.py`` is a copy of the JAX package's: the same
+    similarity transforms on the same trajectories, exactly."""
+    from geomapnet_tpu.geometry import align as jax_align
+    from geomapnet_tpu_torch.geometry import align
+
+    a = args(*_align_inputs())
+    got, want = getattr(align, fn)(*a), getattr(jax_align, fn)(*a)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, w)

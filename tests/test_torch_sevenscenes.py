@@ -358,17 +358,19 @@ def test_cli_main_synth(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--pose_graph", "--native_loader"],
-    ["--quantize", "int8", "--native_loader"],
-    ["--fold_bn", "--eval_dropout", "--native_loader"],
-    ["--calibrate", "2", "--native_loader"],
-    ["--quantize_heads", "--pose_graph", "--native_loader"],
-    ["--fuse_requant", "--eval_dropout", "--native_loader"],
-    ["--eval_dropout", "--native_loader"], ["--native_loader"],
+    ["--pose_graph", "--device_cache", "shard"],
+    ["--quantize", "int8", "--device_cache", "shard"],
+    ["--fold_bn", "--eval_dropout", "--device_cache", "shard"],
+    ["--calibrate", "2", "--device_cache", "shard"],
+    ["--quantize_heads", "--pose_graph", "--device_cache", "shard"],
+    ["--fuse_requant", "--eval_dropout", "--device_cache", "shard"],
+    ["--native_loader", "--device_cache", "shard"],
+    ["--device_cache", "shard"],
 ])
 def test_cli_refuses_unported_flags(scene, mapnet_npz, flag, capsys):
-    """The one unported flag (--native_loader) is refused naming its
-    ROADMAP item, alone or beside the flags that slices 4-6 ported."""
+    """The one unported eval flag (``--device_cache shard``, the
+    frame-sharded cache over several devices) is refused naming its
+    ROADMAP item, alone or beside the flags that slices 4-10 ported."""
     with pytest.raises(SystemExit):
         _cli(scene, mapnet_npz, *flag)
     assert "ROADMAP" in capsys.readouterr().err

@@ -227,7 +227,7 @@ def resumed_datasets():
 
 @pytest.mark.parametrize("extra,message", [
     (["--device_cache", "shard"], "item 17"),
-    (["--native_loader"], "item 15"),
+    (["--native_loader", "--distributed"], "item 17"),
     (["--distributed"], "item 17"),
     (["--tensorboard"], "item 18"),
 ])
