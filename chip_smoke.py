@@ -177,6 +177,27 @@ prints no result line):
    model, one K4 launch a forward. (d) ``cli.tools`` export_model (equal to
    (b)'s float32 artifact) and time_imload on the card.
 
+11. Data parallel over ``torch.distributed``: W ranks, one per card (W =
+   the largest of 4, 2, 1 that the visible cards allow; NCCL), each a
+   ``chip_smoke.py --dp-rank`` process with the environment ``torchrun``
+   gives a rank. (a) ``cli.eval.main()`` on phase 4's scene with
+   ``--device_cache shard``, in float32 (within 1e-5 of phase 4's one-rank
+   (b)) and in the serving configuration (``--quantize int8 --calibrate 2
+   --quantize_heads --fuse_requant``, the frame-sharded S2D int8 row cache:
+   bit-equal to phase 5's one-rank (e); K1 36 launches a window and
+   calibration batch and K2 one a window on every rank). (b)
+   ``cli.train.main --distributed --raw_bayer --device_cache shard
+   --steps_per_launch 5`` on phase 8's RobotCar scene for 2 epochs (lr
+   1e-5, cuDNN deterministic; the all-reduce, the index all-gather and the
+   sharded gather's reduce-scatter inside the graphs): K4 once per step and
+   validation batch on every rank (replays counted), losses and parameters
+   within the train-step bounds of the same run on one card without a
+   group; the all-reduce's and reduce-scatter's share of a step's device
+   time from a ``torch.profiler`` trace of 3 eager steps. Then two gloo
+   ranks on card 0 probe each collective the port calls on CUDA tensors;
+   where gloo takes them all, (a) and (b) run again over gloo (eager
+   steps); where it refuses one, the phase prints which.
+
 The line before the last is a JSON object with every kernel's launches on
 its main path, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -940,6 +961,7 @@ def check_int8_eval(p4: dict, npz: Path, config) -> dict:
         if not np.isfinite(res["pred_poses"]).all():
             raise AssertionError(f"{name}: non-finite poses")
     e, f, g, h = (runs[k] for k in sorted(runs))
+    p4["runs"]["e_cache_int8_fused"] = e    # phase 11's one-rank reference
     b = p4["runs"]["b_cache_f32"]
     if e["device_frames"].dtype != torch.int8 or e["device_frames"].dim() != 2:
         raise AssertionError("(e) did not run on the int8 row cache")
@@ -1003,8 +1025,9 @@ def check_int8_eval(p4: dict, npz: Path, config) -> dict:
     qtree = cli_eval._serving_tree(
         posenet, True, True, CALIBRATE,
         cli_eval._calibration_batches(
-            dataset, True, frames, idx_mat, CALIBRATE, B, preprocess,
-            frames.device, config.num_workers))
+            dataset, True, lambda rows: frames.index_select(0, rows),
+            idx_mat, CALIBRATE, B, preprocess, frames.device,
+            config.num_workers))
     s2d = quant.convert_stem_s2d(qtree)
     net = quant.QuantizedPoseNet(s2d, torch.bfloat16, fused=True).cuda()
     step = make_step(net, preprocess, T)
@@ -2816,6 +2839,506 @@ def check_serving(p4: dict, npz: Path, config, rc_root: Path, tmp: Path,
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+
+PHASE11_RANKS = (4, 2, 1)  # rank counts that divide the batch of 20
+PHASE11_EPOCHS = 2
+# the CPU step tests' rate: at random init, with BatchNorm over a batch,
+# float32 noise grows chaotically at 1e-4 (tests/test_torch_train_step.py)
+PHASE11_LR = 1e-5
+PHASE11_TIMEOUT = 300
+COLLECTIVES = ("all_reduce", "reduce_scatter_tensor",
+               "all_gather_into_tensor", "broadcast")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(spec: dict, world: int, local_ranks: list, tmp: Path,
+              timeout: float = PHASE11_TIMEOUT) -> list:
+    """``world`` processes of ``chip_smoke.py --dp-rank``, each with the
+    environment ``torchrun`` gives a rank (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``); returns their
+    results in rank order. A rank that fails (or a group past ``timeout``)
+    stops every rank and raises with the rank's log."""
+    import os
+
+    name = spec["name"]
+    out = tmp / f"p11_{name}"
+    out.mkdir(parents=True, exist_ok=True)
+    spec = dict(spec, out=str(out), timeout=timeout)
+    (out / "spec.json").write_text(json.dumps(spec))
+    port = str(free_port())
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(local_ranks[r]), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=port, OMP_NUM_THREADS="2",
+                   PYTHONUNBUFFERED="1")
+        log = out / f"rank{r}.log"
+        logs.append(log)
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank",
+                 str(out / "spec.json")], env=env, stdout=f,
+                stderr=subprocess.STDOUT, cwd=str(ROOT)))
+    deadline = time.time() + timeout
+    failed = None
+    while any(p.poll() is None for p in procs):
+        bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+        if bad or time.time() > deadline:
+            failed = bad[0] if bad else None
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    codes = [p.returncode for p in procs]
+    if failed is None and codes != [0] * world:
+        failed = next(r for r, c in enumerate(codes) if c != 0)
+    if failed is not None or codes != [0] * world:
+        r = 0 if failed is None else failed
+        tail = logs[r].read_text()[-3000:]
+        raise AssertionError(f"phase 11 {name}: rank exit codes {codes} "
+                             f"(timeout {timeout} s); rank {r}'s log:\n"
+                             f"{tail}")
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def _probe_collectives(mesh, device) -> dict:
+    """Each collective the port calls, on tensors on ``device``: accepted
+    (and its value) or the backend's refusal."""
+    W, r = mesh.world_size, mesh.rank
+    cases = {
+        "all_reduce": (lambda: mesh.all_reduce_(torch.full(
+            (8,), float(r + 1), device=device)), float(W * (W + 1) // 2)),
+        "reduce_scatter_tensor": (lambda: mesh.reduce_scatter(torch.full(
+            (4 * W,), r + 1, dtype=torch.uint8, device=device)),
+            W * (W + 1) // 2),
+        "all_gather_into_tensor": (lambda: mesh.all_gather(torch.full(
+            (4,), r + 1, dtype=torch.uint8, device=device)), None),
+        "broadcast": (lambda: mesh.broadcast_(torch.full(
+            (8,), float(r + 7), device=device)), 7.0),
+    }
+    out = {}
+    for name, (fn, want) in cases.items():
+        try:
+            got = fn()
+            torch.cuda.synchronize(device)
+            vals = got.cpu().tolist()
+            ok = (vals == [v for v in range(1, W + 1) for _ in range(4)]
+                  if want is None else all(v == want for v in vals))
+            out[name] = dict(accepted=True, correct=bool(ok))
+        except Exception as e:   # the backend's refusal, reported
+            out[name] = dict(accepted=False,
+                             error=f"{type(e).__name__}: {str(e)[:200]}")
+    return out
+
+
+def _collective_share(trainer, tmp: Path, name: str,
+                      steps: int = 3) -> dict:
+    """``steps`` eager data-parallel train steps under ``torch.profiler``:
+    the device time of a step, the NCCL kernels' share of it (all-reduce,
+    reduce-scatter, all-gather, by kernel name), and the host-side share
+    of the steps' wall spent in the c10d collectives (a gloo collective
+    runs on the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = iter(trainer.train_loader)
+    idx, poses, _ = next(batches)
+    batches.close()     # stops the loader's prefetch thread
+    idx, poses = trainer._put(idx, poses, index=True)
+    frames = trainer._train_frames
+    seed = trainer.config.seed
+    trainer.train_step(idx, poses, seed=seed, frames=frames)   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer.train_step(idx, poses, seed=seed, frames=frames)
+        torch.cuda.synchronize()
+    trace = tmp / f"{name}_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    total = sum(e["dur"] for e in kernels)
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"]
+                                                         for e in events)
+    out = dict(step_device_ms=total / steps / 1e3,
+               step_wall_ms=span / steps / 1e3)
+    def named(e, tag):   # "ncclDevKernel_AllReduce...", "c10d::allreduce_"
+        return tag in e["name"].lower().replace("_", "")
+
+    for key, tag in (("all_reduce", "allreduce"),
+                     ("reduce_scatter", "reducescatter"),
+                     ("all_gather", "allgather")):
+        dev = sum(e["dur"] for e in kernels
+                  if "nccl" in e["name"].lower() and named(e, tag))
+        host = sum(e["dur"] for e in events if e.get("cat") == "cpu_op"
+                   and e["name"].startswith("c10d::") and named(e, tag))
+        out[f"{key}_device_share"] = dev / total if total else 0.0
+        out[f"{key}_host_share"] = host / span if span else 0.0
+    return out
+
+
+def dp_rank_main(spec_path: str) -> int:
+    """One rank of phase 11 (``chip_smoke.py --dp-rank SPEC``, started by
+    :func:`run_ranks`): joins the group on the spec's backend, then runs
+    the spec's evals and training through the CLIs' ``main()`` and writes
+    what the parent checks."""
+    import faulthandler
+    import os
+
+    sys.path.insert(0, str(ROOT))
+    from geomapnet_tpu_torch.cli import eval as cli_eval
+    from geomapnet_tpu_torch.cli import train as cli_train
+    from geomapnet_tpu_torch.ops import cuda_image, cuda_quant
+    from geomapnet_tpu_torch.parallel import initialize_distributed, \
+        make_mesh
+
+    spec = json.loads(Path(spec_path).read_text())
+    out = Path(spec["out"])
+    rank = int(os.environ["RANK"])
+    # a rank that hangs prints every thread's stack into its log (and
+    # exits) before the parent's timeout
+    faulthandler.dump_traceback_later(spec.get("timeout", PHASE11_TIMEOUT)
+                                      - 15, exit=True)
+    device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the phase picks the backend; the CLIs then find the group formed
+    initialize_distributed(backend=spec["backend"], device=device,
+                           timeout_s=PHASE11_TIMEOUT)
+    mesh = make_mesh(device)
+    result = dict(rank=rank, world=mesh.world_size, backend=mesh.backend)
+    if spec.get("probe"):
+        result["probe"] = _probe_collectives(mesh, device)
+    for name, argv in spec.get("evals", {}).items():
+        for k in cuda_quant.launches:
+            cuda_quant.launches[k] = 0
+        cuda_image.launches = 0
+        t0 = time.time()
+        res = cli_eval.main(argv)
+        torch.cuda.synchronize()
+        result[name] = dict(
+            wall=time.time() - t0, images_per_sec=res["images_per_sec"],
+            upload_secs=res.get("upload_secs"),
+            frames_computed=res.get("frames_computed"),
+            dedup_slice=res.get("dedup_slice"),
+            rows=list(res["device_frames"].shape),
+            launches=dict(cuda_quant.launches, K4=cuda_image.launches))
+        np.save(out / f"{name}_rank{rank}.npy", res["pred_poses"])
+        del res
+        torch.cuda.empty_cache()
+    if spec.get("train"):
+        # graph and eager steps equal, and the runs comparable, only with
+        # cuDNN's deterministic algorithms (phase 8 (a))
+        torch.backends.cudnn.deterministic = True
+        run_dir = out / "train"
+        run_dir.mkdir(exist_ok=True)
+        os.chdir(run_dir)
+        cuda_image.launches = 0
+        t0 = time.time()
+        trainer = cli_train.main(spec["train"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        k4 = cuda_image.launches
+        graphs = trainer.graph_launches()
+        for g in graphs.values():
+            per = g["per_replay"].get("demosaic_half_normalize", 0)
+            k4 += (g["replays"] - 1) * per
+        st = trainer.epoch_stats[1:]
+        result["train"] = dict(
+            wall=wall, k4=k4, graphs=graphs,
+            steps=sum(e["steps"] for e in trainer.epoch_stats),
+            val_batches=len(trainer.val_loader) * PHASE11_EPOCHS,
+            images_per_s=sum(e["images"] for e in st)
+            / sum(e["secs"] for e in st),
+            upload_secs=trainer.upload_secs,
+            logdir=str(run_dir / trainer.logdir))
+        if spec.get("profile"):
+            result["train"]["profile"] = _collective_share(
+                trainer, out, f"{spec['name']}_rank{rank}")
+    (out / f"rank{rank}.json").write_text(json.dumps(result))
+    # NCCL's destroy_process_group hung at 4 ranks on the card's machine,
+    # after every result was written: the rank exits without the teardown
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def _train_logs(logdir: Path) -> tuple:
+    """(train losses by step, final model state) of a run's logdir."""
+    records = [json.loads(ln) for ln in
+               (logdir / "metrics.jsonl").read_text().splitlines()]
+    losses = np.array([r["loss"] for r in records if r["kind"] == "train"])
+    last = sorted(logdir.glob("epoch_*.pth.tar"))[-1]
+    state = torch.load(last, map_location="cpu", weights_only=False)
+    return losses, state["model_state_dict"]
+
+
+def _train_gaps(a_dir: Path, b_dir: Path, steps: int, what: str) -> dict:
+    """Run a's gaps to run b: per-step relative loss gaps, the BatchNorm
+    statistics' gap (of each tensor's max-abs) and the parameters' largest
+    absolute gap."""
+    a_loss, a = _train_logs(a_dir)
+    b_loss, b = _train_logs(b_dir)
+    if len(a_loss) != len(b_loss) or len(a_loss) != steps:
+        raise AssertionError(f"{what}: {len(a_loss)} / {len(b_loss)} "
+                             f"logged steps, expected {steps}")
+    stats = params = 0.0
+    for k, v in b.items():
+        if not v.is_floating_point():
+            continue
+        d = float((a[k].double() - v.double()).abs().max())
+        if "running" in k:
+            stats = max(stats, d / max(float(v.abs().max()), 1e-30))
+        else:
+            params = max(params, d)
+    return dict(loss=np.abs(a_loss - b_loss) / np.abs(b_loss), stats=stats,
+                params=params)
+
+
+def _compare_train(ranks_dir: Path, one_dir: Path, control_dir: Path,
+                   steps: int, what: str) -> dict:
+    """The W-rank run against the one-card run on the same global batches.
+    tests/test_torch_train_step.py's bounds over its 4 steps: step 1's
+    loss within 1e-5 and steps 1-4 within 1e-4 relative; the parameters
+    within 2 lr N after all N steps (Adam). Past step 4 the trajectory is
+    chaotic at random init (ROADMAP.md Queue 3): the later losses and the
+    BatchNorm statistics are held within 10x the gap of a control, the
+    one-card run from weights moved by one ulp, as
+    ``test_lr_1e4_envelope_of_a_one_ulp_control`` holds the port."""
+    g = _train_gaps(ranks_dir, one_dir, steps, what)
+    c = _train_gaps(control_dir, one_dir, steps, f"{what} control")
+    out = dict(loss1=float(g["loss"][0]), loss4=float(g["loss"][:4].max()),
+               loss=float(g["loss"].max()), stats=g["stats"],
+               params=g["params"], params_bound=2 * PHASE11_LR * steps,
+               control_loss=float(c["loss"].max()),
+               control_stats=c["stats"])
+    print(f"phase 11 (b) {what} vs one card: step-1 loss {out['loss1']:.3g}"
+          f", steps 1-4 {out['loss4']:.3g}, all {steps} steps "
+          f"{out['loss']:.3g} relative (one-ulp control "
+          f"{out['control_loss']:.3g}); BatchNorm statistics "
+          f"{out['stats']:.3g} of their max-abs (control "
+          f"{out['control_stats']:.3g}); parameters {out['params']:.3g} "
+          f"(bound {out['params_bound']:.3g})")
+    if not (out["loss1"] <= 1e-5 and out["loss4"] <= 1e-4
+            and out["params"] <= out["params_bound"]
+            and out["loss"] <= max(1e-4, 10 * out["control_loss"])
+            and out["stats"] <= max(1e-4, 10 * out["control_stats"])):
+        raise AssertionError(f"{what}: outside the train-step bounds {out}")
+    return out
+
+
+def check_data_parallel(p4: dict, root: Path, tmp: Path, config_file: Path,
+                        card: str, gloo: bool = True) -> dict:
+    """Phase 11: data-parallel eval and training over ``torch.distributed``
+    through the CLIs, one rank per card (NCCL), and (``gloo``) two gloo
+    ranks on one card where gloo takes CUDA tensors."""
+
+    t_phase = time.time()
+    n_cards = torch.cuda.device_count()
+    W = next(w for w in PHASE11_RANKS if w <= n_cards)
+    serving = ["--quantize", "int8", "--calibrate", str(CALIBRATE),
+               "--quantize_heads", "--fuse_requant"]
+    evals = {"f32_shard": p4["argv"] + ["--device_cache", "shard"],
+             "int8_shard": p4["argv"] + ["--device_cache", "shard"]
+             + serving}
+    # no dropout: the W-rank global batch holds the one-card run's samples
+    # in another row order (ranks take strided slices), and a keep-mask
+    # row follows the row, not the sample (in the JAX package too)
+    ini = write_train_ini(tmp, config_file, PHASE11_EPOCHS, "mapnet_dp",
+                          print_freq=1, lr=PHASE11_LR, dropout=0.0)
+    # every run starts from the same seeded weights (--checkpoint: the
+    # weights only), the group's from rank 0's
+    from geomapnet_tpu_torch.cli import builders
+    from geomapnet_tpu_torch.cli.config import parse_ini
+
+    torch.manual_seed(SEED)
+    model, _ = builders.build_model("mapnet", parse_ini(ini),
+                                    trunk="resnet34")
+    init = tmp / "p11_init.pth.tar"
+    torch.save({"model_state_dict": model.state_dict()}, init)
+    # the control's start: every float weight moved by one ulp
+    ulp = tmp / "p11_init_ulp.pth.tar"
+    torch.save({"model_state_dict": {
+        k: torch.nextafter(v, torch.full_like(v, float("inf")))
+        if v.is_floating_point() else v
+        for k, v in model.state_dict().items()}}, ulp)
+    del model
+    train = ["--dataset", "RobotCar", "--scene", "loop", "--model",
+             "mapnet", "--trunk", "resnet34", "--raw_bayer",
+             "--checkpoint", str(init),
+             "--learn_beta", "--learn_gamma", "--config_file", str(ini),
+             "--data_path", str(root / "deepslam"),
+             "--asset_root", str(root / "assets"),
+             "--steps_per_launch", str(PHASE8_K)]
+    one_b = p4["runs"]["b_cache_f32"]["pred_poses"]
+    one_e = p4["runs"]["e_cache_int8_fused"]["pred_poses"]
+
+    def check_evals(ranks: list, what: str, tmp_out: Path) -> dict:
+        rates = {}
+        for name, one, exact in (("f32_shard", one_b, False),
+                                 ("int8_shard", one_e, True)):
+            poses = [np.load(tmp_out / f"{name}_rank{r}.npy")
+                     for r in range(len(ranks))]
+            for r, p in enumerate(poses[1:], 1):
+                if not np.array_equal(p, poses[0]):
+                    raise AssertionError(f"{what} {name}: rank {r}'s poses "
+                                         f"differ from rank 0's")
+            # translations against the largest |translation|; the random
+            # weights' log-q outputs are O(1e2-1e3) rad, so a 1e-7 relative
+            # change turns their unit quaternions by ~1e-4 (reported only)
+            scale = float(np.abs(one[:, :3]).max())
+            gap = float(np.abs(poses[0][:, :3] - one[:, :3]).max()) / scale
+            qgap = float(np.abs(poses[0][:, 3:] - one[:, 3:]).max())
+            same = np.array_equal(poses[0], one)
+            runs = [rk[name] for rk in ranks]
+            print(f"phase 11 (a) {what} {name}: "
+                  f"{runs[0]['images_per_sec']:.1f} images/s, wall "
+                  f"{runs[0]['wall']:.2f} s, upload "
+                  f"{runs[0]['upload_secs']:.2f} s, rows a rank "
+                  f"{runs[0]['rows']}, frames_computed "
+                  f"{runs[0]['frames_computed']}; vs the one-rank eval: "
+                  f"translations {gap} of the largest, quaternions {qgap}, "
+                  f"bit-equal {same}; launches by rank "
+                  f"{[r['launches'] for r in runs]}")
+            if exact:
+                # the int8 trunk is exact at any batch, and the heads run on
+                # the all-gathered features of the whole window, the batch
+                # the one-rank eval gives them
+                if not same:
+                    raise AssertionError(f"{what} {name}: int8 poses off "
+                                         f"the one-rank eval's by {gap}")
+            elif gap > 1e-5:
+                raise AssertionError(f"{what} {name}: translations off by "
+                                     f"{gap} of the largest")
+            if name == "int8_shard":
+                sites = 36
+                windows = runs[0]["frames_computed"] // MAIN_FRAMES
+                for r, run in enumerate(runs):
+                    want = sites * (windows + CALIBRATE)
+                    if (run["launches"]["int8_conv"] != want or
+                            run["launches"]["int8_maxpool3x3s2"] != windows):
+                        raise AssertionError(
+                            f"{what} rank {r}: K1/K2 launches "
+                            f"{run['launches']}, expected {want} / "
+                            f"{windows}")
+            rates[name] = runs[0]["images_per_sec"]
+        return rates
+
+    def check_train(ranks: list, what: str, refs: tuple) -> dict:
+        runs = [rk["train"] for rk in ranks]
+        for r, run in enumerate(runs):
+            if run["k4"] != run["steps"] + run["val_batches"]:
+                raise AssertionError(
+                    f"{what} rank {r}: K4 ran {run['k4']} times for "
+                    f"{run['steps']} steps and {run['val_batches']} "
+                    f"validation batches")
+        gaps = _compare_train(Path(runs[0]["logdir"]), *refs,
+                              runs[0]["steps"], what)
+        print(f"phase 11 (b) {what}: train {runs[0]['images_per_s']:.1f} "
+              f"images/s over epoch 2 (all ranks), upload "
+              f"{runs[0]['upload_secs']:.2f} s, wall {runs[0]['wall']:.2f} "
+              f"s; K4 by rank {[r['k4'] for r in runs]} (graphs "
+              f"{runs[0]['graphs']}); profile "
+              f"{runs[0].get('profile')}")
+        return dict(images_per_s=runs[0]["images_per_s"], gaps=gaps,
+                    k4=sum(r["k4"] for r in runs),
+                    profile=runs[0].get("profile"))
+
+    def one_card(argv: list, name: str) -> tuple:
+        """The same training on one card without a group (the same global
+        batches), and its one-ulp control, under deterministic cuDNN;
+        their logdirs."""
+        dirs = []
+        torch.backends.cudnn.deterministic = True
+        try:
+            for tag, start in (("", init), ("_ulp", ulp)):
+                d = tmp / f"p11_{name}{tag}"
+                d.mkdir()
+                argv_ = [str(start) if a == str(init) else a for a in argv]
+                trainer, _ = run_train_cli(argv_ + ["--device_cache"], d)
+                dirs.append(d / trainer.logdir)
+                del trainer
+                torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        return tuple(dirs)
+
+    refs = one_card(train, "one")
+
+    # the NCCL group: one rank per card, every phase at once
+    t0 = time.time()
+    ranks = run_ranks(dict(name="nccl", backend="nccl", evals=evals,
+                           train=train + ["--distributed", "--device_cache",
+                                          "shard"], profile=True),
+                      W, list(range(W)), tmp)
+    nccl_wall = time.time() - t0
+    rates = check_evals(ranks, f"NCCL W={W}", tmp / "p11_nccl")
+    trained = check_train(ranks, f"NCCL W={W}", refs)
+    launches = {k: sum(rk[n]["launches"][k] for rk in ranks
+                       for n in evals)
+                for k in ("int8_conv", "int8_maxpool3x3s2")}
+    launches["K4"] = trained["k4"]
+    out = dict(W=W, backend="nccl", wall=nccl_wall, eval_rates=rates,
+               train=trained, launches=launches)
+
+    if gloo:
+        # two gloo ranks sharing card 0: used only if gloo takes CUDA tensors
+        # for every collective the port calls (nothing is staged on the host)
+        probe = run_ranks(
+            dict(name="gloo_probe", backend="gloo", probe=True), 2, [0, 0],
+            tmp, timeout=120)[0]["probe"]
+        refused = [k for k in COLLECTIVES if not probe[k]["accepted"]]
+        print(f"phase 11: gloo on CUDA tensors (2 ranks, card 0): "
+              f"{ {k: v['accepted'] for k, v in probe.items()} }; refused "
+              f"{[(k, probe[k]['error']) for k in refused]}")
+        if any(v["accepted"] and not v["correct"] for v in probe.values()):
+            raise AssertionError(f"gloo on CUDA gave a wrong result: "
+                                 f"{probe}")
+        out["gloo_cuda"] = {k: v["accepted"] for k, v in probe.items()}
+        if not refused:
+            on0 = ["--device", "cuda:0"]
+            ranks = run_ranks(dict(
+                name="gloo", backend="gloo",
+                evals={k: v + on0 for k, v in evals.items()},
+                # gloo collectives cannot be captured: eager steps
+                train=train[:-2] + ["--distributed", "--device_cache",
+                                    "shard"] + on0, profile=True),
+                2, [0, 0], tmp)
+            check_evals(ranks, "gloo W=2", tmp / "p11_gloo")
+            for k in ("int8_conv", "int8_maxpool3x3s2"):
+                out["launches"][k] += sum(rk[n]["launches"][k]
+                                          for rk in ranks for n in evals)
+            out["launches"]["K4"] += sum(rk["train"]["k4"] for rk in ranks)
+            # the K=5 references hold for eager steps too: under
+            # deterministic cuDNN a graph of K steps equals K eager steps
+            # bit for bit (phase 8 (a))
+            out["gloo"] = check_train(ranks, "gloo W=2", refs)
+    out["wall"] = time.time() - t_phase
+    print(f"phase 11: W={W} ({card}), backend nccl, wall "
+          f"{out['wall']:.2f} s (NCCL group {nccl_wall:.2f} s); (a) "
+          f"images/s {rates}; (b) train images/s "
+          f"{trained['images_per_s']:.1f}; collectives' share of a step "
+          f"{trained['profile']}; launches {out['launches']}; gloo on CUDA "
+          f"{out.get('gloo_cuda', 'not probed')}"
+          + (f"; gloo W=2 train images/s {out['gloo']['images_per_s']:.1f},"
+             f" collectives' share {out['gloo']['profile']}"
+             if "gloo" in out else ""))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs only "
@@ -3014,6 +3537,9 @@ def main() -> int:
               f"{ {k: v for k, v in served.items() if k != 'launches'} } "
               f"({card}); launches {p10}")
 
+        # phase 11: data-parallel eval and training over torch.distributed
+        p11 = check_data_parallel(p4, root, tmp, config_file, card)["launches"]
+
     f32 = kernel["float32"]
     # K4's bound: each mosaic byte read once, each float32 output written
     # once (60x960x1280 uint8 -> 60x3x480x640 float32)
@@ -3025,7 +3551,7 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": launches + cache_k4 + pp_k4 + p10["K4"],
+        "launches": launches + cache_k4 + pp_k4 + p10["K4"] + p11["K4"],
         "max_abs_err": max(k["max_abs_err"] for k in kernel.values()),
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -3037,7 +3563,8 @@ def main() -> int:
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": int8_launches["int8_conv"] + p10["int8_conv"],
+        "launches": (int8_launches["int8_conv"] + p10["int8_conv"]
+                     + p11["int8_conv"]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -3050,7 +3577,7 @@ def main() -> int:
         "source": K2_SOURCE,
         "replaces": K2_REPLACES,
         "launches": (int8_launches["int8_maxpool3x3s2"]
-                     + p10["int8_maxpool3x3s2"]),
+                     + p10["int8_maxpool3x3s2"] + p11["int8_maxpool3x3s2"]),
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -3067,4 +3594,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":
+        sys.exit(dp_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -14,7 +14,9 @@ serving trunks on the hand-written int8 conv and max-pool kernels
 (:mod:`geomapnet_tpu_torch.ops.cuda_quant`); MapNet+PGO
 (:mod:`geomapnet_tpu_torch.pgo`, with the torch quaternion / SE(3) / VO ops
 of :mod:`geomapnet_tpu_torch.geometry`) and eval-time dropout: ``python -m
-geomapnet_tpu_torch.cli.eval ...``.
+geomapnet_tpu_torch.cli.eval ...``; training (``python -m
+geomapnet_tpu_torch.cli.train ...``), and both data-parallel over several
+cards under ``torchrun`` (:mod:`geomapnet_tpu_torch.parallel`).
 
 Importing the package loads no submodule; import what you use.
 """

@@ -60,15 +60,32 @@ Ported so far, with PoseNet, MapNet or MapNet++ weights from a port checkpoint
   call per batch, instead of PIL; the run fails with the compiler's message
   on a host where the decoder cannot be built.
 
-The frame-sharded device cache (``--device_cache shard``) is refused with
-the ROADMAP.md item that ports it; the trajectory plot of ``--output_dir``
-is not written.
+- Several cards: launched by ``torchrun --nproc_per_node=N``, the CLI
+  joins the process group (NCCL; gloo with ``--device cpu``) and
+  evaluates data-parallel, rank ``r`` on ``cuda:LOCAL_RANK``: every batch
+  or window shards over the ranks through the trunk (a ``batch_size`` the
+  ranks do not divide runs whole on every rank, with the JAX package's
+  message), the trunk features are all-gathered and every rank runs the
+  heads on the whole batch, and only rank 0 prints and writes files.
+  ``--device_cache shard`` keeps the scene frame-sharded over the ranks
+  (``make_sharded_gather``: one reduce-scatter a window), also as the int8
+  serving configuration's row cache::
+
+    torchrun --nproc_per_node=8 -m geomapnet_tpu_torch.cli.eval \
+        --dataset 7Scenes --scene heads --model mapnet \
+        --config_file configs/mapnet.ini --weights w.npz --val \
+        --device_cache shard --quantize int8 --calibrate 2 \
+        --quantize_heads --fuse_requant --batch_size 64 \
+        --data_path <root> --asset_root <assets>
+
+The trajectory plot of ``--output_dir`` is not written.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import pickle
 import time
 from pathlib import Path
@@ -79,9 +96,12 @@ import torch
 from ..data.composite import MF
 from ..data.device_cache import (
     _probe_frames,
+    make_sharded_gather,
     quantize_rows,
     s2d_frame_shape,
     upload_frames,
+    upload_frames_global,
+    upload_frames_sharded,
 )
 from ..data.loader import Loader
 from ..data.vo_np import vos_logq_fc_np, vos_logq_np
@@ -108,6 +128,7 @@ from .builders import (
 )
 from .config import parse_ini
 from .eval_epoch import (
+    gather_windows,
     make_step,
     plan_epoch,
     run_epoch,
@@ -133,6 +154,33 @@ class _Single:
         img, pose = self.ds[i]
         return (None if img is None else img[None],
                 np.asarray(pose, np.float32)[None])
+
+
+class _Rows:
+    """The samples ``rows`` of a dataset, in that order: a rank's share of
+    every padded global batch on the data-parallel loader path."""
+
+    def __init__(self, ds, rows: np.ndarray):
+        self.ds, self.rows = ds, rows
+        if hasattr(ds, "fetch_many"):
+            self.fetch_many = lambda idx, **kw: ds.fetch_many(
+                [int(self.rows[i]) for i in idx], **kw)
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        return self.ds[int(self.rows[i])]
+
+
+def _rank_rows(S: int, batch_size: int, mesh) -> np.ndarray:
+    """This rank's rows of every global batch of ``batch_size`` samples of
+    ``S`` (the last padded with the last sample, as the Loader pads)."""
+    nb = -(-S // batch_size)
+    order = np.minimum(np.arange(nb * batch_size), S - 1)
+    per = batch_size // mesh.world_size
+    return order.reshape(nb, batch_size)[
+        :, mesh.rank * per:(mesh.rank + 1) * per].reshape(-1)
 
 
 def evaluate(model: torch.nn.Module, dataset, device: torch.device,
@@ -170,6 +218,22 @@ def evaluate(model: torch.nn.Module, dataset, device: torch.device,
     ``stochastic`` keeps the PoseNet's dropout active; batch (window) ``k``
     draws from ``window_generator(seed, k)``. The device cache then runs
     the tuple epoch (dedup is refused), and the serving trunks are refused.
+
+    ``mesh`` (a :class:`geomapnet_tpu_torch.parallel.DataParallel` with a
+    process group; every rank calls ``evaluate`` alike): data-parallel
+    eval. Each batch or window shards over the ranks through the trunk;
+    the features are all-gathered and the heads run on the whole batch
+    (:func:`~geomapnet_tpu_torch.cli.eval_epoch.make_step`), so every rank
+    returns the same result and the heads see the one-rank batch. A
+    ``batch_size`` that the ranks do not divide runs whole on every rank,
+    with the JAX package's message. ``device_cache="shard"`` (which needs
+    the group) uploads each rank's share of the frames and reads each
+    window through
+    :func:`geomapnet_tpu_torch.data.device_cache.make_sharded_gather`; the
+    returned "device_frames" is then this rank's shard, and a reused tensor
+    of ``ceil(N/W)`` rows is taken as one. With several ranks the
+    replicated cache uploads by an all-gather (each rank decodes its
+    share).
 
     Serving trunks (:mod:`geomapnet_tpu_torch.models.quant`), under the JAX
     package's argument names and checks: ``fold_bn`` runs the BN-folded
@@ -226,6 +290,7 @@ def _evaluate(
     calib_batches: int = 0,
     quantize_heads: bool = False,
     fuse_requant: bool = False,
+    mesh=None,
 ) -> dict:
     is_tuple = isinstance(dataset, MF)
     L = len(dataset.dset) if is_tuple else len(dataset)
@@ -260,23 +325,48 @@ def _evaluate(
     pose_m, pose_s = (
         pose_stats if pose_stats is not None else (np.zeros(3), np.ones(3))
     )
+    # data-parallel eval: batches shard over the group's ranks; the full
+    # batch on every rank when they do not divide it
+    dp = mesh if mesh is not None and mesh.active else None
+    if dp is not None and batch_size % dp.world_size:
+        print(f"eval: batch_size {batch_size} not divisible by "
+              f"{dp.world_size} devices; running single-device (pick a "
+              f"multiple to shard)")
+        dp = None
+    if device_cache == "shard" and dp is None:
+        raise ValueError(
+            "device_cache='shard' needs a data-parallel group (a torchrun "
+            "launch with batch_size divisible by the ranks)")
     model.eval()
     result = {}
     frame_buf = frame_shape = None
+    cache_sharded = False
     upload_secs = 0.0
     idx_mat = tuple_index_matrix(dataset, is_tuple)
 
     if use_device_cache:
         frames_src = dataset.dset if is_tuple else dataset
+        n_frames = len(frames_src)
         t_up = time.time()
         if isinstance(device_cache, torch.Tensor):
             frame_buf = device_cache
+            # a returned shard has ceil(N/W) rows
+            cache_sharded = (dp is not None and dp.world_size > 1
+                             and frame_buf.shape[0] != n_frames)
+        elif device_cache == "shard":
+            frame_buf = upload_frames_sharded(frames_src, dp,
+                                              num_workers=num_workers)
+            cache_sharded = True
+        elif dp is not None and dp.world_size > 1:
+            frame_buf = upload_frames_global(frames_src, dp,
+                                             num_workers=num_workers)
         else:
             frame_buf = upload_frames(frames_src, device,
                                       num_workers=num_workers)
         if frame_buf.device.type == "cuda":
             torch.cuda.synchronize(frame_buf.device)
         upload_secs = time.time() - t_up
+    sharded_gather = make_sharded_gather(dp) if cache_sharded else None
     row_cache = (frame_buf is not None and frame_buf.dtype == torch.int8
                  and frame_buf.dim() == 2)
     if row_cache and not prequant:
@@ -285,11 +375,24 @@ def _evaluate(
 
     net = getattr(model, "posenet", model)
     if quantize or fold_bn:
+        read = None
+        if frame_buf is not None and not row_cache:
+            if cache_sharded:
+                def read(rows):
+                    # the full batch on every rank: the sharded gather's
+                    # shards, all-gathered (rows padded to a multiple of W)
+                    pad = -len(rows) % dp.world_size
+                    idx = torch.cat([rows, rows[-1:].repeat(pad)])
+                    return dp.all_gather(sharded_gather(frame_buf, idx))[
+                        :len(rows)]
+            else:
+                def read(rows):
+                    return frame_buf.index_select(0, rows)
         qtree = _serving_tree(
             net, quantize, quantize_heads, calib_batches,
             _calibration_batches(
-                dataset, is_tuple, None if row_cache else frame_buf, idx_mat,
-                calib_batches, batch_size, preprocess, device, num_workers))
+                dataset, is_tuple, read, idx_mat, calib_batches, batch_size,
+                preprocess, device, num_workers))
         # int8 serves in bf16; BN folding keeps the model's own dtype
         dtype = torch.bfloat16 if quantize else net.fc_feat.compute_dtype
         if prequant:
@@ -317,7 +420,7 @@ def _evaluate(
                                    fused=bool(fuse_requant)).to(device)
     # batches run T-FOLDED, (B*T, H, W, C), through the per-frame PoseNet
     # (MapNet is exactly this fold) and fold back to (B, T, 6)
-    step = make_step(net, preprocess, steps)
+    step = make_step(net, preprocess, steps, dp)
 
     if use_device_cache:
         if is_tuple:
@@ -331,11 +434,14 @@ def _evaluate(
         plan = plan_epoch(idx_mat, batch_size,
                           per_frame=is_tuple and not (dynamic_q or stochastic),
                           dedup_frames=dedup_frames)
-        if progress:
+        if progress and (dp is None or dp.rank == 0):
             print(f"eval: {plan.mode} epoch, {len(plan.windows)} windows of "
-                  f"{plan.window_frames} frames from the device cache")
+                  f"{plan.window_frames} frames from the device cache"
+                  + (f" over {dp.world_size} ranks" if dp is not None
+                     else ""))
         outs = run_epoch(plan, frame_buf, step, frame_shape,
-                         dropout_seed=seed if stochastic else None)
+                         dropout_seed=seed if stochastic else None, mesh=dp,
+                         sharded_gather=sharded_gather)
         output = tuple_outputs(plan, outs.to("cpu", torch.float64).numpy())
         elapsed = time.time() - t_start
         result.update(device_frames=frame_buf, upload_secs=upload_secs,
@@ -346,22 +452,36 @@ def _evaluate(
         # of a host sync per batch
         dev_outputs = []
         host_targets = []
-        loader = Loader(dataset if is_tuple else _Single(dataset),
-                        batch_size, shuffle=False, drop_last=False,
+        source = dataset if is_tuple else _Single(dataset)
+        local_bs = batch_size
+        if dp is not None:
+            # this rank's rows of every (padded) global batch; the step
+            # returns the whole batch's poses
+            local_bs = batch_size // dp.world_size
+            source = _Rows(source, _rank_rows(len(idx_mat), batch_size, dp))
+        loader = Loader(source, local_bs, shuffle=False, drop_last=False,
                         num_workers=num_workers)
         t_start = time.time()
         with torch.inference_mode():
             for batch_idx, (imgs, poses, _) in enumerate(loader):
-                if progress and batch_idx % 10 == 0:
+                if progress and batch_idx % 10 == 0 and (
+                        dp is None or dp.rank == 0):
                     print(f"Batch {batch_idx} / {len(loader)}")
                 x = torch.from_numpy(imgs.reshape(-1, *imgs.shape[2:]))
                 gen = (window_generator(seed, batch_idx, device)
                        if stochastic else None)
                 dev_outputs.append(step(x.to(device), gen))
-                host_targets.append(poses)
-            output = torch.cat(dev_outputs).to("cpu", torch.float64).numpy()
+                host_targets.append(torch.from_numpy(poses))
+            output = torch.cat(dev_outputs)
+            targ = torch.cat(host_targets)
+            if dp is not None:
+                # every rank's target rows of every batch, in batch order
+                targ = gather_windows(targ.to(device).reshape(
+                    (len(loader), local_bs) + tuple(targ.shape[1:])), dp)
+                targ = targ.reshape((-1,) + tuple(targ.shape[2:]))
+            output = output.to("cpu", torch.float64).numpy()
+            targ = targ.to("cpu").numpy()
         elapsed = time.time() - t_start
-        targ = np.concatenate(host_targets)
     # drop the last batch's pad rows
     S = len(idx_mat)
     output = output[:S]
@@ -429,20 +549,22 @@ def _serving_tree(posenet, quantize: bool, quantize_heads: bool,
     return qtree
 
 
-def _calibration_batches(dataset, is_tuple: bool, frame_buf, idx_mat,
+def _calibration_batches(dataset, is_tuple: bool, read, idx_mat,
                          n: int, batch_size: int, preprocess, device,
                          num_workers: int):
     """The first ``n`` eval batches, folded to (B*T, H, W, C) and
-    preprocessed on ``device``: gathered from the uploaded frames
-    ``frame_buf`` when given (rows ``idx_mat[i*B:(i+1)*B]``; a short last
-    batch stays short where the loader repeats its last tuple, which leaves
-    every absmax as it is), else decoded by a loader as the JAX package
-    does. A generator: nothing runs until it is iterated."""
-    if frame_buf is not None:
+    preprocessed on ``device``: ``read(frame_indices)`` from the uploaded
+    frames when given (rows ``idx_mat[i*B:(i+1)*B]``; a short last batch
+    stays short where the loader repeats its last tuple, which leaves every
+    absmax as it is), else decoded by a loader as the JAX package does.
+    Every rank of a data-parallel eval reads whole batches, so every rank
+    calibrates the same scales. A generator: nothing runs until it is
+    iterated."""
+    if read is not None:
         for i in range(min(n, -(-len(idx_mat) // batch_size))):
             rows = torch.from_numpy(
                 idx_mat[i * batch_size:(i + 1) * batch_size].reshape(-1))
-            x = frame_buf.index_select(0, rows.to(frame_buf.device))
+            x = read(rows.to(device))
             yield preprocess(x) if preprocess is not None else x
         return
     loader = iter(Loader(dataset if is_tuple else _Single(dataset),
@@ -521,7 +643,9 @@ def main(argv=None) -> dict:
         choices=["shard"],
         help="upload the whole scene's frames to the device once and run "
         "the epoch from there (no per-batch decode or upload); 'shard' "
-        "(the frame-sharded cache over several devices) is not ported yet",
+        "keeps the frames sharded over the ranks of a torchrun launch "
+        "(capacity scales with the rank count; one reduce-scatter a "
+        "window)",
     )
     parser.add_argument(
         "--no_frame_dedup", action="store_true",
@@ -551,16 +675,16 @@ def main(argv=None) -> dict:
         "fused into each conv's epilogue; with --device_cache the scene is "
         "cached as prequantized space-to-depth int8 rows")
     args = parser.parse_args(argv)
-    if args.device_cache == "shard":
-        parser.error("--device_cache shard is not ported yet (ROADMAP.md, "
-                     "Queue 1, item 17: the frame-sharded cache needs "
-                     "several GPUs)")
     if args.raw_bayer and args.dataset != "RobotCar":
         parser.error("--raw_bayer requires --dataset RobotCar")
     if Path(args.weights).suffix not in (".npz", ".tar", ".pth"):
         parser.error("--weights must be a .pth.tar / .pth checkpoint or an "
                      ".npz of Flax variables")
-    device = pick_device(args.device)
+    device, mesh = _join_launch(args.device)
+    if args.device_cache == "shard" and mesh is None:
+        parser.error("--device_cache shard needs a data-parallel group: "
+                     "launch the eval with torchrun --nproc_per_node=N")
+    is_main = mesh is None or mesh.rank == 0
 
     # fp32 eval: the JAX CLI's default dtype is float32, and cuDNN convs
     # would otherwise run in TF32
@@ -575,11 +699,13 @@ def main(argv=None) -> dict:
                            trunk=args.trunk, dtype=dtype)
     kind = load_weights(args.weights, model)
     model.to(device=device, memory_format=torch.channels_last)
-    print(f"Loaded weights from {args.weights} ({kind})")
-
     train = not args.val
-    print(f"Running {args.model} on {'TRAIN' if train else 'VAL'} data "
-          f"on {device}")
+    if is_main:
+        print(f"Loaded weights from {args.weights} ({kind})")
+        print(f"Running {args.model} on {'TRAIN' if train else 'VAL'} data "
+              f"on {device}" + ("" if mesh is None else
+                                f" and {mesh.world_size - 1} more ranks "
+                                f"({mesh.backend})"))
 
     data_path = (
         args.data_path if args.dataset == "synth"
@@ -649,7 +775,10 @@ def main(argv=None) -> dict:
         calib_batches=args.calibrate,
         quantize_heads=args.quantize_heads,
         fuse_requant=args.fuse_requant,
+        mesh=mesh,
     )
+    if not is_main:   # every rank holds the same result; rank 0 reports
+        return results
 
     print(
         "Error in translation: median {:3.2f} m,  mean {:3.2f} m\n"
@@ -683,6 +812,26 @@ def main(argv=None) -> dict:
             }, f, indent=2)
         print(f"{out / name}.pkl / _metrics.json saved")
     return results
+
+
+def _join_launch(name: str | None):
+    """(device, group) of this process: under a ``torchrun`` launch (its
+    ``RANK`` / ``WORLD_SIZE`` set) the process joins the group, NCCL on
+    ``cuda:LOCAL_RANK`` unless ``name`` asks for the CPU (then gloo);
+    otherwise ``pick_device(name)`` and no group. The counterpart of the
+    JAX CLI's evaluating over every local device."""
+    from ..parallel import initialize_distributed, local_device, make_mesh
+
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return pick_device(name), None
+    if name is None:
+        device = local_device()
+    else:
+        device = torch.device(name)
+    initialize_distributed(
+        backend="nccl" if device.type == "cuda" else "gloo",
+        device=device if device.type == "cuda" else None)
+    return device, make_mesh(device)
 
 
 if __name__ == "__main__":

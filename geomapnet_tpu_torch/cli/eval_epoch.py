@@ -40,6 +40,19 @@ two paths give the same draws for a seed (the JAX package folds ``k`` into
 its eval key for both, cli/eval.py:399-403 and 651-653; the streams
 themselves differ from ``jax.random``).
 
+Data parallel (a :class:`geomapnet_tpu_torch.parallel.DataParallel` of
+``W`` ranks): every rank plans the same epoch and computes rows ``[r *
+B*T/W, (r + 1) * B*T/W)`` of every window, read from its replica of the
+cache (``narrow`` / ``index_select``) or, from the frame-sharded cache,
+by the sharded gather's reduce-scatter over the window's full index list
+(:func:`geomapnet_tpu_torch.data.device_cache.make_sharded_gather`; a
+slice window is its consecutive indices). The rank's trunk features are
+all-gathered (one ``all_gather_into_tensor`` a window) and every rank
+runs the heads on the whole window, so the heads see the one-rank batch
+(a cuBLAS GEMM's result for a row may change with the rows beside it)
+and dropout draws the whole window's mask from the window's generator:
+the poses do not depend on ``W`` beyond the trunk's float rounding.
+
 There is no cache of captured programs and no CUDA graph here: every epoch
 runs the modules it is given eagerly, so nothing can be reused across
 calls with stale batch sizes or frame shapes (the JAX package's compiled
@@ -55,7 +68,8 @@ import numpy as np
 import torch
 
 __all__ = ["EpochPlan", "plan_epoch", "make_step", "run_epoch",
-           "tuple_outputs", "tuple_index_matrix", "window_generator"]
+           "gather_windows", "tuple_outputs", "tuple_index_matrix",
+           "window_generator"]
 
 
 @dataclasses.dataclass
@@ -146,58 +160,96 @@ def window_generator(seed: int, index: int,
 
 
 def make_step(model: torch.nn.Module, preprocess: Callable | None,
-              steps: int) -> Callable[..., torch.Tensor]:
-    """``step(frames, generator=None) -> poses``: (B*T, H, W, C) frames of B
-    tuples through ``preprocess`` and the per-frame PoseNet (MapNet's shared
-    one, or a :class:`~geomapnet_tpu_torch.models.quant.QuantizedPoseNet`)
-    to (B, T, 6) poses; with a ``generator`` the PoseNet's dropout is
-    active. int8 frames are the prequantized row cache's: they skip
-    ``preprocess``."""
+              steps: int, mesh=None) -> Callable[..., torch.Tensor]:
+    """``step(frames, generator=None) -> poses``: (B*T, H, W, C) frames of
+    B tuples through ``preprocess`` and the per-frame PoseNet (MapNet's
+    shared one, or a :class:`~geomapnet_tpu_torch.models.quant.
+    QuantizedPoseNet`) to (B, T, 6) poses; with a ``generator`` the
+    PoseNet's dropout is active. int8 frames are the prequantized row
+    cache's: they skip ``preprocess``.
+
+    ``mesh`` (a data-parallel group of ``W`` > 1 ranks): ``frames`` are
+    this rank's ``B*T/W`` rows of the window, rank-major; their trunk
+    features are all-gathered and the heads run on the whole window, whose
+    (B, T, 6) poses every rank returns."""
     posenet = getattr(model, "posenet", model)
+    gather = mesh is not None and mesh.world_size > 1
 
     def step(frames: torch.Tensor,
              generator: torch.Generator | None = None) -> torch.Tensor:
         if preprocess is not None and frames.dtype != torch.int8:
             frames = preprocess(frames)
-        out = posenet(frames) if generator is None else posenet(
-            frames, generator)
+        feats = posenet.features(frames)
+        if gather:
+            feats = mesh.all_gather(feats)
+        out = (posenet.head(feats) if generator is None
+               else posenet.head(feats, generator))
         return out.reshape(-1, steps, 6)
 
     return step
 
 
+def gather_windows(outs: torch.Tensor, mesh) -> torch.Tensor:
+    """(k, B/W, ...) per-window rows of every rank -> the (k, B, ...)
+    windows on every rank (one all-gather; ranks' rows in rank order)."""
+    if mesh is None:
+        return outs
+    W = mesh.world_size
+    full = mesh.all_gather(outs)
+    return full.view((W,) + tuple(outs.shape)).transpose(0, 1).reshape(
+        (outs.shape[0], W * outs.shape[1]) + tuple(outs.shape[2:]))
+
+
 def run_epoch(plan: EpochPlan, frames: torch.Tensor,
               step: Callable[..., torch.Tensor],
               frame_shape: tuple | None = None,
-              dropout_seed: int | None = None) -> torch.Tensor:
+              dropout_seed: int | None = None, mesh=None,
+              sharded_gather: Callable | None = None) -> torch.Tensor:
     """Run every window of ``plan`` over the device frame stack ``frames``;
     returns the (k, B, T, 6) poses on the device (no host sync).
 
     ``frame_shape``: ``frames`` is a 2-D row cache; each window's rows are
     viewed as ``(B*T,) + frame_shape``. ``dropout_seed``: window ``k`` runs
     with dropout drawn from ``window_generator(dropout_seed, k)`` (tuple
-    epochs only).
+    epochs only). ``mesh``: a data-parallel group; this rank reads its
+    rows of every window, and ``step`` (:func:`make_step` with the same
+    ``mesh``) returns the whole window. ``sharded_gather``: ``frames`` is
+    this rank's shard of a frame-sharded cache, read through this gather.
     """
     if dropout_seed is not None and plan.mode != "tuple":
         raise ValueError("eval-time dropout runs the tuple epoch only")
+    n = plan.window_frames
+    W, rank = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
+    per = n // W
+    lo, hi = rank * per, (rank + 1) * per
+    dev = frames.device
 
     def view(rows: torch.Tensor) -> torch.Tensor:
         return rows if frame_shape is None else rows.view(
             (-1,) + tuple(frame_shape))
 
+    def read(window: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a window given by its (n,) indices."""
+        if sharded_gather is not None:
+            return sharded_gather(frames, window)
+        return frames.index_select(0, window[lo:hi])
+
     outs = []
     with torch.inference_mode():
         if plan.mode == "slice":
             for start in plan.windows.tolist():
-                outs.append(step(view(
-                    frames.narrow(0, start, plan.window_frames))))
+                if sharded_gather is None:
+                    rows = frames.narrow(0, start + lo, per)
+                else:
+                    rows = read(torch.arange(start, start + n, device=dev))
+                outs.append(step(view(rows)))
         else:
-            idx = torch.from_numpy(plan.windows).to(frames.device)
+            idx = torch.from_numpy(plan.windows).to(dev)
             for k, row in enumerate(idx):
                 gen = None if dropout_seed is None else window_generator(
-                    dropout_seed, k, frames.device)
-                outs.append(step(view(frames.index_select(0, row)), gen))
-    return torch.stack(outs)
+                    dropout_seed, k, dev)
+                outs.append(step(view(read(row)), gen))
+        return torch.stack(outs)
 
 
 def tuple_outputs(plan: EpochPlan, outs: np.ndarray) -> np.ndarray:

@@ -2,7 +2,7 @@
 
 The PyTorch counterpart of :mod:`geomapnet_tpu.cli.train` (upstream
 scripts/train.py): the same flags, ``.ini`` semantics and experiment naming,
-on one device::
+on one device or data-parallel over several::
 
     python -m geomapnet_tpu_torch.cli.train --dataset 7Scenes --scene heads \\
         --config_file configs/mapnet.ini --model mapnet \\
@@ -34,15 +34,28 @@ frames with the C++ batch decoder (:mod:`geomapnet_tpu_torch.native`)
 instead of PIL, also for the device cache's upload; it fails with the
 compiler's message where the decoder cannot be built.
 
-Flags of the JAX CLI that the port does not run yet are refused, each
-naming the ROADMAP.md item that ports it (``--device_cache shard`` among
-them); ``--no_mesh`` is accepted and does nothing (the port trains on one
-card).
+``--distributed`` trains data-parallel, one rank per card, under
+``torchrun`` (which sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and the
+rendezvous address): rank ``r`` trains on ``cuda:LOCAL_RANK`` (gloo ranks
+on the CPU with ``--device cpu``), each loads ``batch_size / N`` rows of
+every global batch, and only rank 0 writes ``log.txt``, ``metrics.jsonl``
+and checkpoints::
+
+    torchrun --nproc_per_node=8 -m geomapnet_tpu_torch.cli.train \
+        --distributed --dataset RobotCar --scene loop --model mapnet \
+        --config_file configs/mapnet.ini --raw_bayer \
+        --device_cache shard --steps_per_launch 5 ...
+
+``--device_cache shard`` keeps the frames sharded over the ranks;
+``--no_mesh`` trains one process alone, and is ignored (as in the JAX
+CLI) when several processes run. Flags of the JAX CLI that the port does
+not run yet are refused, each naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from pathlib import Path
 
 import torch
@@ -66,7 +79,6 @@ __all__ = ["main"]
 # flags of the JAX CLI that the port refuses, and the ROADMAP.md item that
 # ports each
 _UNPORTED_FLAGS = {
-    "distributed": "Queue 1, item 17 (multi-GPU)",
     "tensorboard": "Queue 1, item 18 (aux; the card's machine has no "
                    "tensorboard package)",
 }
@@ -109,8 +121,15 @@ def main(argv=None) -> Trainer:
         "--bf16", action="store_true",
         help="bfloat16 compute at the JAX package's placement (convs and "
         "dense layers in bf16, BatchNorm and residuals in float32)")
-    parser.add_argument("--no_mesh", action="store_true",
-                        help="accepted for parity; the port runs on one card")
+    parser.add_argument(
+        "--no_mesh", action="store_true",
+        help="train this process alone (ignored when several processes "
+        "run: a multi-process run always uses the group)")
+    parser.add_argument(
+        "--distributed", action="store_true",
+        help="join torch.distributed for data-parallel training under "
+        "torchrun (one rank per card: NCCL; gloo with --device cpu); the "
+        "rendezvous comes from the launcher's environment")
     parser.add_argument(
         "--host_normalize", action="store_true",
         help="normalize images on the host (float32 transfer) instead of the "
@@ -136,8 +155,9 @@ def main(argv=None) -> Trainer:
         choices=["shard"],
         help="upload each split's frames to the device once and feed "
         "training by on-device index gather: no host decode or image "
-        "transfer after the upload ('shard', the frame-sharded cache, is "
-        "not ported yet: ROADMAP.md, Queue 1, item 17)")
+        "transfer after the upload (replicated over the ranks, each rank "
+        "decoding its share). '--device_cache shard' keeps the stack "
+        "frame-sharded over the ranks: capacity scales with their count")
     parser.add_argument(
         "--ingest_overlap", action="store_true",
         help="with --device_cache: train the first epoch from the image "
@@ -170,17 +190,27 @@ def main(argv=None) -> Trainer:
     for flag, where in _UNPORTED_FLAGS.items():
         if getattr(args, flag):
             parser.error(f"--{flag} is not ported yet (ROADMAP.md, {where})")
-    if args.device_cache == "shard":
-        parser.error("--device_cache shard is not ported yet (ROADMAP.md, "
-                     "Queue 1, item 17: the frame-sharded cache needs "
-                     "several GPUs)")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not args.distributed:
+        parser.error("the launcher started several processes "
+                     f"(WORLD_SIZE={os.environ['WORLD_SIZE']}): pass "
+                     "--distributed, or they would train independently")
     if args.raw_bayer and args.dataset != "RobotCar":
         parser.error("--raw_bayer requires --dataset RobotCar")
     config = parse_ini(args.config_file)
     if config.visdom:
         parser.error("visdom = yes (the TensorBoard writer) is not ported yet "
                      "(ROADMAP.md, Queue 1, item 18); set visdom = no")
-    device = pick_device(args.device)
+    if args.distributed:
+        from ..parallel import initialize_distributed, local_device
+
+        device = (local_device() if args.device is None
+                  else torch.device(args.device))
+        idx, count = initialize_distributed(
+            backend="nccl" if device.type == "cuda" else "gloo",
+            device=device if device.type == "cuda" else None)
+        print(f"torch.distributed: process {idx}/{count} on {device}")
+    else:
+        device = pick_device(args.device)
 
     # float32 means float32: cuDNN convs and matmuls would otherwise run TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -223,6 +253,7 @@ def main(argv=None) -> Trainer:
         model, train_criterion, config, name, train_set, val_set,
         val_criterion=val_criterion, checkpoint=checkpoint,
         resume_optim=resume_optim, device=device,
+        use_mesh=not args.no_mesh,
         profile_dir=args.profile_dir, debug_nans=args.debug_nans,
         preprocess=preprocess, accum_steps=args.grad_accum,
         device_cache=args.device_cache,

@@ -1,9 +1,9 @@
 """Batch loader: fixed-shape numpy batches with background prefetch.
 
-A copy of :class:`geomapnet_tpu.data.loader.Loader` without its multi-host
-sharding (tests/test_torch_import_isolation.py pins the copy to the
-original). It replaces the reference's torch DataLoader + ``safe_collate``
-(upstream common/train.py:55-62, 180-188):
+A copy of :class:`geomapnet_tpu.data.loader.Loader`
+(tests/test_torch_import_isolation.py pins the copy to the original). It
+replaces the reference's torch DataLoader + ``safe_collate`` (upstream
+common/train.py:55-62, 180-188):
 
 - **fixed shapes**: the trailing partial batch is dropped for training
   (``drop_last=True``) and padded to the full batch size for evaluation,
@@ -18,7 +18,15 @@ original). It replaces the reference's torch DataLoader + ``safe_collate``
   stops early (``close()`` of the iterator, as a ``break`` does) stops the
   thread too: it finishes the batch in hand and exits, where the original
   stays blocked on its queue (or, if the files go away, probes forward
-  through every remaining sample).
+  through every remaining sample);
+- **process sharding**: with ``process_count > 1`` every process (a rank
+  of :mod:`geomapnet_tpu_torch.parallel`) draws the same seeded
+  permutation, truncates it to a multiple of ``process_count`` and takes
+  ``order[p::P]``, so all processes see the same batch count and the
+  rank-ordered concatenation of their batches is the global batch. With
+  ``rows`` (the port's addition, for gradient accumulation over several
+  ranks) a process loads those rows of each such global batch instead of
+  its own block (:func:`geomapnet_tpu_torch.parallel.microbatch_rows`).
 """
 
 from __future__ import annotations
@@ -45,6 +53,12 @@ class Loader:
     :param prefetch: number of batches to stage in the background thread
     :param num_workers: intra-batch fetch parallelism (1 = serial); passed on
         to the dataset's ``fetch_many`` when it has one
+    :param process_index / process_count: this process's disjoint strided
+        slice of every epoch's permutation
+    :param rows: with ``process_count > 1`` and ``drop_last``, the rows of
+        each global batch (``process_count * batch_size`` rows, the
+        processes' default batches in process order) this process loads;
+        None loads its own block
     """
 
     def __init__(
@@ -56,6 +70,9 @@ class Loader:
         seed: int = 7,
         prefetch: int = 2,
         num_workers: int = 1,
+        process_index: int = 0,
+        process_count: int = 1,
+        rows=None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -65,9 +82,32 @@ class Loader:
         self.prefetch = prefetch
         self.num_workers = max(1, int(num_workers))
         self._pool: ThreadPoolExecutor | None = None
+        # multi-process sharding of the host pipeline: every process draws
+        # the same seeded permutation and takes a disjoint strided slice, so
+        # per-process batches are the per-rank shards of a global batch
+        self.process_index = process_index
+        self.process_count = process_count
+        self.rows = None if rows is None else np.asarray(rows, np.int64)
+        if self.rows is not None:
+            if not drop_last:
+                raise ValueError("rows regroups full global batches only "
+                                 "(drop_last=True)")
+            if len(self.rows) != batch_size:
+                raise ValueError(f"{len(self.rows)} rows for a local batch "
+                                 f"of {batch_size}")
+
+    def _local_len(self) -> int:
+        n = len(self.dataset)
+        if self.process_count > 1:
+            # truncate to a multiple of process_count so every process sees
+            # the SAME local length — unequal lengths would give processes
+            # different batch counts and deadlock the collective at the
+            # epoch tail
+            n = (n // self.process_count)
+        return n
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = self._local_len()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -120,6 +160,22 @@ class Loader:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             self.rng.shuffle(order)
+        if self.process_count > 1:
+            # equal-length disjoint strided slices of the shared permutation
+            # (tail dropped so all processes agree on the batch count)
+            P = self.process_count
+            n_even = len(order) - len(order) % P
+            if self.rows is None:
+                order = order[:n_even][self.process_index::P]
+            else:
+                # the global batches as the processes' default batches
+                # concatenate (row p * bs + j is process p's row j), then
+                # this process's rows of each
+                bs = self.batch_size
+                nb = n_even // P // bs
+                glob = order[:nb * bs * P].reshape(nb, bs, P).transpose(
+                    0, 2, 1).reshape(nb, P * bs)
+                order = glob[:, self.rows].reshape(-1)
         bs = self.batch_size
         n_full = len(order) // bs
         for b in range(n_full):

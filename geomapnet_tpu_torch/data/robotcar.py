@@ -46,6 +46,7 @@ from .robotcar_sdk import (
     interpolate_vo_poses,
     load_stereo_image,
 )
+from .transforms import write_pose_stats
 
 __all__ = ["RobotCar"]
 
@@ -92,10 +93,9 @@ def _real_pose_stats(stats_file: Path, write_from: np.ndarray | None):
     if write_from is not None:
         mean_t = np.mean(write_from[:, [3, 7, 11]], axis=0)
         std_t = np.std(write_from[:, [3, 7, 11]], axis=0)
-        stats_file.parent.mkdir(parents=True, exist_ok=True)
         # %8.7f quantizes anything below 5e-8 to a literal 0.0 on disk
         std_t = _clamp_degenerate_std(std_t, threshold=1e-6)
-        np.savetxt(stats_file, np.vstack((mean_t, std_t)), fmt="%8.7f")
+        write_pose_stats(stats_file, mean_t, std_t)
         return mean_t, std_t
     stats = np.loadtxt(stats_file)
     return stats[0], _clamp_degenerate_std(stats[1], threshold=1e-8)

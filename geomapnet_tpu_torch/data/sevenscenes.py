@@ -44,6 +44,7 @@ from pathlib import Path
 import numpy as np
 
 from ..geometry.process import process_poses
+from .transforms import write_pose_stats
 
 __all__ = ["SevenScenes"]
 
@@ -125,8 +126,7 @@ def _pose_stats(stats_file: Path, write_identity: bool):
     (7Scenes trajectories are small), read back otherwise."""
     if write_identity:
         mean_t, std_t = np.zeros(3), np.ones(3)
-        stats_file.parent.mkdir(parents=True, exist_ok=True)
-        np.savetxt(stats_file, np.vstack((mean_t, std_t)), fmt="%8.7f")
+        write_pose_stats(stats_file, mean_t, std_t)
         return mean_t, std_t
     return np.loadtxt(stats_file)
 

@@ -18,6 +18,9 @@ With the device pipeline, the host transform keeps resized uint8
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
+from pathlib import Path
 from typing import Sequence
 
 import numpy as np
@@ -28,6 +31,7 @@ __all__ = [
     "Normalize",
     "ImageTransform",
     "std_from_stats",
+    "write_pose_stats",
 ]
 
 
@@ -105,6 +109,20 @@ def color_jitter(
     for k in rng.permutation(len(ops)):
         img = ops[k](img)
     return img
+
+
+def write_pose_stats(path: Path, mean_t: np.ndarray,
+                     std_t: np.ndarray) -> None:
+    """Write a scene's translation ``pose_stats.txt`` (the mean row, then
+    the std row, ``%8.7f``) through a temporary file of its own and a
+    rename: every rank of a data-parallel run writes the same stats, and a
+    rank reading the file meanwhile sees a whole one."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(
+        f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    np.savetxt(tmp, np.vstack((mean_t, std_t)), fmt="%8.7f")
+    os.replace(tmp, path)
 
 
 def std_from_stats(stats: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -111,7 +111,11 @@ class PoseNet(nn.Module):
         In train mode, or with ``generator`` (on ``x``'s device) or an
         (N, feat_dim) boolean ``keep_mask``, the dropout after ``fc_feat``
         is active."""
-        return self.head(self.feature_extractor(x), generator, keep_mask)
+        return self.head(self.features(x), generator, keep_mask)
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) -> (N, F) trunk features (:meth:`head`'s input)."""
+        return self.feature_extractor(x)
 
     def head(self, feats: torch.Tensor,
              generator: torch.Generator | None = None,

@@ -399,6 +399,15 @@ class QuantizedPoseNet(nn.Module):
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         return posenet_apply_int8(self, images, self.dtype, self.fused)
 
+    def features(self, images: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) images -> (N, F) trunk features (:meth:`head`'s
+        input); ``forward`` is ``head(features(images))``."""
+        return _trunk_features(self, images, self.dtype, self.fused)
+
+    def head(self, feats: torch.Tensor) -> torch.Tensor:
+        """(N, F) trunk features -> (N, 6) float32 poses."""
+        return _apply_heads(self, feats, self.dtype)
+
 
 # ------------------------------------------------------------------ forwards
 
@@ -664,21 +673,26 @@ def posenet_apply_int8(qnet: QuantizedPoseNet, images: torch.Tensor,
     isn't fusable, on int8 input without ``fused``, and on an S2D tree
     without ``fused``.
     """
+    return _apply_heads(qnet, _trunk_features(qnet, images, dtype, fused),
+                        dtype)
+
+
+def _trunk_features(qnet: QuantizedPoseNet, images: torch.Tensor, dtype,
+                    fused: bool) -> torch.Tensor:
+    """(N, H, W, 3) -> (N, F): :func:`posenet_apply_int8`'s trunk."""
     if fused:
         if not qnet.fusable:
             raise ValueError(
                 "fused requant needs calibrated static scales on every "
                 "site and a basic-block (resnet18/34) trunk")
-        feat = _trunk_forward_fused(qnet, images, dtype)
-    else:
-        if images.dtype == torch.int8:
-            raise ValueError("prequantized int8 input "
-                             "(quantize_input_int8) needs fused=True")
-        if qnet.stem_s2d:
-            raise ValueError("space-to-depth stem trees (convert_stem_s2d) "
-                             "run fused only; pass fused=True")
-        feat = _trunk_forward(qnet, images.to(dtype), dtype)
-    return _apply_heads(qnet, feat, dtype)
+        return _trunk_forward_fused(qnet, images, dtype)
+    if images.dtype == torch.int8:
+        raise ValueError("prequantized int8 input "
+                         "(quantize_input_int8) needs fused=True")
+    if qnet.stem_s2d:
+        raise ValueError("space-to-depth stem trees (convert_stem_s2d) "
+                         "run fused only; pass fused=True")
+    return _trunk_forward(qnet, images.to(dtype), dtype)
 
 
 def mapnet_apply_int8(qnet: QuantizedPoseNet, images: torch.Tensor,

@@ -34,6 +34,14 @@ the backward's elementwise math in bfloat16. Inside
 :func:`recomputing_batch_norm` (the recompute of ``remat``) a train-mode
 BatchNorm normalizes with its batch statistics and leaves its running
 statistics and batch count as the first forward left them.
+
+Data-parallel training (:func:`geomapnet_tpu_torch.parallel.shard_step`)
+sets each BatchNorm's group (:func:`sync_batch_norm`): a train-mode
+BatchNorm then normalizes with the mean and variance of the GLOBAL
+(micro)batch, the rows of every rank, as the JAX package's SPMD BatchNorm
+does (:class:`SyncBatchNorm`: one all-reduce of the per-channel sums in
+the forward, one of the two gradient sums in the backward). Without a
+group nothing changes.
 """
 
 from __future__ import annotations
@@ -47,7 +55,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["ResNet", "BasicBlock", "Bottleneck", "Conv2d", "BatchNorm2d",
-           "BatchNormBf16Backward", "recomputing_batch_norm",
+           "BatchNormBf16Backward", "SyncBatchNorm", "sync_batch_norm",
+           "recomputing_batch_norm",
            "kaiming_normal_", "resnet18", "resnet34", "resnet50"]
 
 # set while remat recomputes a forward: BatchNorm then moves no statistic
@@ -145,20 +154,101 @@ class BatchNormBf16Backward(torch.autograd.Function):
                 sum_g.to(weight.dtype), None, None, None, None)
 
 
+class SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over a data-parallel group's global batch.
+
+    The forward all-reduces the local per-channel (sum, sum of squares) in
+    one float32 buffer and normalizes with the global statistics in the
+    JAX package's one-pass form (``mean = E[x]``, ``var = E[x^2] -
+    E[x]^2``, biased; :class:`geomapnet_tpu.models.resnet.BatchNorm`),
+    then moves the running statistics toward the global mean and the
+    unbiased global variance. The backward all-reduces the two gradient
+    sums and returns ``dx = w invstd (g - sum(g)/n - xhat sum(g xhat)/n)``
+    over the global ``n`` (the gradient of every rank's loss with respect
+    to this rank's rows), and the LOCAL sums as the scale and bias
+    gradients, which the step's gradient all-reduce then averages. With
+    ``bf16_backward`` the backward's elementwise math is
+    :class:`BatchNormBf16Backward`'s. Every rank holds the same number of
+    rows; every rank must run the same layers in the same order (a
+    recompute under ``remat`` runs the collective again).
+
+    ``apply(x, weight, bias, running_mean, running_var, momentum, eps,
+    mesh, bf16_backward)``.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum,
+                eps, mesh, bf16_backward):
+        dims = (0,) + tuple(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        c = x.shape[1]
+        n = x.numel() // c * mesh.world_size
+        stats = mesh.all_reduce_(torch.cat([x.sum(dims), (x * x).sum(dims)]))
+        mean = stats[:c] / n
+        var = stats[c:] / n - mean * mean
+        invstd = torch.rsqrt(var + eps)
+        xhat = (x - mean.view(shape)) * invstd.view(shape)
+        y = xhat * weight.view(shape) + bias.view(shape)
+        with torch.no_grad():
+            running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
+            running_var.mul_(1.0 - momentum).add_(
+                var * (n / max(n - 1, 1)), alpha=momentum)
+        if bf16_backward:
+            xhat = xhat.to(torch.bfloat16)
+        ctx.save_for_backward(xhat, weight, invstd)
+        ctx.mesh, ctx.n, ctx.bf16 = mesh, n, bf16_backward
+        ctx.x_dtype = x.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xhat, weight, invstd = ctx.saved_tensors
+        n, c = ctx.n, g.shape[1]
+        shape = (1, -1) + (1,) * (g.dim() - 2)
+        dims = (0,) + tuple(range(2, g.dim()))
+        if ctx.bf16:
+            g = g.to(torch.bfloat16)
+        sum_g = torch.sum(g, dims, dtype=torch.float32)
+        sum_gx = torch.sum(g * xhat, dims, dtype=torch.float32)
+        tot = ctx.mesh.all_reduce_(torch.cat([sum_g, sum_gx]))
+        dt = g.dtype
+        coef = (weight.float() * invstd).to(dt).view(shape)
+        dx = coef * (g - (tot[:c] / n).to(dt).view(shape)
+                     - xhat * (tot[c:] / n).to(dt).view(shape))
+        return (dx.to(ctx.x_dtype), sum_gx.to(weight.dtype),
+                sum_g.to(weight.dtype), None, None, None, None, None, None)
+
+
+def sync_batch_norm(model: nn.Module, mesh) -> nn.Module:
+    """Give every :class:`BatchNorm2d` of ``model`` the data-parallel group
+    ``mesh`` (a :class:`geomapnet_tpu_torch.parallel.DataParallel`; None
+    turns the sync off): in train mode they normalize over the group's
+    global batch (:class:`SyncBatchNorm`). Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.sync_mesh = mesh
+    return model
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) that reads and writes
     float32 whatever its input's dtype, as the Flax trunk's
     ``BatchNorm(dtype=float32, momentum=0.9)``. With ``bf16_backward`` its
-    train-mode backward is :class:`BatchNormBf16Backward`'s."""
+    train-mode backward is :class:`BatchNormBf16Backward`'s; with a
+    ``sync_mesh`` (:func:`sync_batch_norm`) train mode normalizes over the
+    group's global batch."""
 
     def __init__(self, c: int, bf16_backward: bool = False):
         super().__init__(c, eps=1e-5, momentum=0.1)
         self.bf16_backward = bf16_backward
+        self.sync_mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         frozen = _RECOMPUTING.get()
-        if not self.training or not (frozen or self.bf16_backward):
+        mesh = self.sync_mesh if self.training else None
+        if not self.training or not (frozen or self.bf16_backward
+                                     or mesh is not None):
             return super().forward(x)
         rm, rv = self.running_mean, self.running_var
         if frozen:
@@ -167,6 +257,10 @@ class BatchNorm2d(nn.BatchNorm2d):
             rm, rv = rm.clone(), rv.clone()
         else:
             self.num_batches_tracked.add_(1)
+        if mesh is not None:
+            return SyncBatchNorm.apply(x, self.weight, self.bias, rm, rv,
+                                       self.momentum, self.eps, mesh,
+                                       self.bf16_backward)
         if self.bf16_backward:
             return BatchNormBf16Backward.apply(x, self.weight, self.bias, rm,
                                                rv, self.momentum, self.eps)

@@ -6,7 +6,8 @@ path: the same epoch structure (validate on every ``val_freq``-th epoch and
 on the last one, snapshot on every ``snapshot``-th epoch and at the end),
 the same per-batch data/batch-time meters, ``print_freq`` console lines and
 ``metrics.jsonl`` records (keys ``loss``, ``lr``, ``data_time``,
-``batch_time`` and the criterion weights), on one device:
+``batch_time`` and the criterion weights), on one device or data-parallel
+over a group of ranks:
 
 - batches stream through :class:`geomapnet_tpu_torch.data.loader.Loader`
   (a copy of the JAX package's, with the same seeded shuffle, so both
@@ -22,9 +23,23 @@ frames from it by index (:class:`~geomapnet_tpu_torch.data.device_cache.
 IndexLoader` batches); ``ingest_overlap`` trains the first epoch from the
 image loader while its decoded frames are staged for the upload;
 ``steps_per_launch = K`` runs K train steps (and K validation batches) as
-one :class:`KLaunch`: a CUDA graph over static buffers on a card. Meshes,
-the frame-sharded cache and multi-host runs of the JAX Trainer wait for
-ROADMAP.md, Queue 1, item 17.
+one :class:`KLaunch`: a CUDA graph over static buffers on a card.
+
+Data parallel (``mesh``, a :class:`geomapnet_tpu_torch.parallel.
+DataParallel` of one rank per card, launched by ``torchrun``): the JAX
+Trainer's multi-process semantics. Each rank loads ``batch_size / W`` rows
+of every global batch (the Loader's process sharding; with gradient
+accumulation the rows of :func:`geomapnet_tpu_torch.parallel.
+microbatch_rows`), the step syncs BatchNorm and all-reduces the gradient
+(:func:`geomapnet_tpu_torch.parallel.shard_step`), the weights start from
+rank 0's (:func:`geomapnet_tpu_torch.parallel.replicated`), and only rank
+0 writes ``log.txt``, ``metrics.jsonl`` and checkpoints (every rank resumes
+from the shared logdir). The device cache replicates by an all-gather
+(each rank decodes its share) or, with ``device_cache="shard"``, stays
+frame-sharded and each batch is read by one reduce-scatter
+(:func:`geomapnet_tpu_torch.data.device_cache.make_sharded_gather`); with
+``steps_per_launch`` the collectives are captured in the CUDA graph
+(NCCL).
 """
 
 from __future__ import annotations
@@ -41,16 +56,28 @@ from ..data.composite import MF, MFOnline
 from ..data.device_cache import (
     FrameRecorder,
     IndexLoader,
+    _ConcatFrames,
     frame_sources,
+    local_shard_range,
+    make_sharded_gather,
     upload_dataset_frames,
+    upload_frames_global,
+    upload_frames_sharded,
 )
 from ..data.loader import Loader
 from ..ops import cuda_image
+from ..parallel.mesh import make_mesh, microbatch_rows, replicated
+from ..parallel.multihost import (
+    assert_same_across_processes,
+    local_batch_size,
+    make_global_batch,
+    process_count,
+)
 from ..utils.logger import AverageMeter, MetricsWriter, Tee
 from .checkpoint import load_model_params, restore_checkpoint, \
     save_checkpoint
 from .optim import make_optimizer
-from .state import make_eval_step, make_train_step
+from .state import gather_frames, make_eval_step, make_train_step
 
 __all__ = ["Trainer", "KLaunch", "chunked"]
 
@@ -193,8 +220,10 @@ class Trainer:
     :param device_cache: upload each split's frames to the device once and
         feed the steps by index gather; turned off, with the JAX Trainer's
         message, when a train frame source's transform jitters (the cache
-        would freeze one draw). ``"shard"`` (the frame-sharded cache) is
-        refused: it needs several GPUs (ROADMAP.md, Queue 1, item 17)
+        would freeze one draw). ``"shard"`` keeps the stacks frame-sharded
+        over the data-parallel group (replicated, with the JAX Trainer's
+        message, when there is no group; a group of one rank runs the
+        sharded path with its collectives over that rank)
     :param steps_per_launch: with ``device_cache``, K train steps and K
         validation batches per :class:`KLaunch` (a CUDA graph on a card);
         an epoch's tail shorter than K runs single steps. Ignored, with the
@@ -204,7 +233,13 @@ class Trainer:
         device_cache.FrameRecorder` stages its decoded frames; the cache is
         uploaded at the end of that epoch (decode paid once), and the index
         loader's shuffle advances one epoch, so epochs 2+ draw the batches
-        of a serial run
+        of a serial run; over several ranks each records only the frames it
+        uploads
+    :param mesh: the data-parallel group (default: :func:`geomapnet_tpu_torch.
+        parallel.make_mesh` on ``device``, which spans the
+        ``torch.distributed`` world once it is initialized)
+    :param use_mesh: False trains this process alone; as in the JAX
+        Trainer, a multi-process run always uses the group
     """
 
     def __init__(
@@ -227,12 +262,20 @@ class Trainer:
         device_cache: bool | str = False,
         steps_per_launch: int = 1,
         ingest_overlap: bool = False,
+        mesh=None,
+        use_mesh: bool = True,
     ):
-        if device_cache == "shard":
-            raise ValueError("device_cache='shard' (the frame-sharded cache) "
-                             "needs several GPUs: ROADMAP.md, Queue 1, item "
-                             "17")
         self.device = torch.device(device)
+        # the data-parallel group: each rank loads 1/W of every global
+        # batch; logs, metrics and checkpoints are written by rank 0 only.
+        # A multi-process run always uses the group, whatever use_mesh says
+        if mesh is None and (use_mesh or process_count() > 1):
+            mesh = make_mesh(self.device)
+        self.mesh = mesh if mesh is not None and mesh.active else None
+        self.process_index = 0 if self.mesh is None else self.mesh.rank
+        self.process_count = 1 if self.mesh is None else self.mesh.world_size
+        self.is_main = self.process_index == 0
+        local_bs = local_batch_size(config.batch_size, self.mesh)
         self.model = model.to(device=self.device,
                               memory_format=torch.channels_last)
         self.config = config
@@ -245,8 +288,10 @@ class Trainer:
 
         self.logdir = Path(logdir_root) / experiment
         self.logdir.mkdir(parents=True, exist_ok=True)
-        self.tee = Tee(self.logdir / "log.txt").install()
-        self.metrics = MetricsWriter(self.logdir / "metrics.jsonl")
+        self.tee = (Tee(self.logdir / "log.txt").install() if self.is_main
+                    else None)
+        self.metrics = MetricsWriter(self.logdir / "metrics.jsonl",
+                                     enabled=self.is_main)
 
         print("---------------------------------------")
         print(f"Experiment: {experiment}")
@@ -255,6 +300,9 @@ class Trainer:
         name = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "cpu")
         print(f"Device: {self.device} ({name})")
+        if self.mesh is not None:
+            print(f"Process {self.process_index}/{self.process_count} "
+                  f"({self.mesh.backend}), local batch {local_bs}")
         print("---------------------------------------")
 
         if device_cache:
@@ -270,6 +318,11 @@ class Trainer:
                     device_cache = False
                     break
         self.device_cache = bool(device_cache)
+        self._cache_sharded = self.device_cache and device_cache == "shard"
+        if self._cache_sharded and self.mesh is None:
+            print("trainer: device_cache='shard' needs a data-parallel "
+                  "group; using the replicated cache")
+            self._cache_sharded = False
         if steps_per_launch > 1 and not self.device_cache:
             print("trainer: steps_per_launch needs device_cache "
                   "(the batches must already live on device); ignoring")
@@ -277,13 +330,24 @@ class Trainer:
             max(1, int(steps_per_launch)) if self.device_cache else 1)
 
         loader_cls = IndexLoader if self.device_cache else Loader
+        self._loader_kwargs = dict(
+            process_index=self.process_index,
+            process_count=self.process_count,
+            num_workers=config.num_workers)
+        # with accumulation over several ranks each rank loads its share of
+        # every global microbatch (JAX splits the GLOBAL batch)
+        self._train_rows = (
+            microbatch_rows(self.process_index, self.process_count,
+                            config.batch_size, accum_steps)
+            if self.process_count > 1 and accum_steps > 1 else None)
         self.train_loader = loader_cls(
-            train_dataset, config.batch_size, shuffle=config.shuffle,
-            drop_last=True, seed=config.seed, num_workers=config.num_workers)
+            train_dataset, local_bs, shuffle=config.shuffle,
+            drop_last=True, seed=config.seed, rows=self._train_rows,
+            **self._loader_kwargs)
         self.val_loader = (
-            loader_cls(val_dataset, config.batch_size, shuffle=False,
+            loader_cls(val_dataset, local_bs, shuffle=False,
                        drop_last=False, seed=config.seed,
-                       num_workers=config.num_workers)
+                       **self._loader_kwargs)
             if (config.do_val and val_dataset is not None) else None
         )
 
@@ -303,16 +367,31 @@ class Trainer:
             else:
                 load_model_params(checkpoint, self.model)
                 print(f"Loaded model weights from {checkpoint}")
+        if self.mesh is not None:
+            # every rank starts from rank 0's weights and loss weights
+            replicated(self.model, self.mesh)
+            replicated(self.train_criterion, self.mesh)
 
         # per trained epoch: host seconds (to a device sync), seconds spent
         # waiting on the loader, steps and forwarded frames
         self.epoch_stats: list[dict] = []
         self._frames_per_item = _frames_per_item(train_dataset)
+        gather = gather_frames
+        if self._cache_sharded:
+            # every rank's index batch, then the sharded gather's
+            # reduce-scatter leaves each rank its own rows
+            sharded = make_sharded_gather(self.mesh)
+            mesh = self.mesh
+
+            def gather(frames, idx):
+                return sharded(frames, mesh.all_gather(idx))
+
         self.train_step = make_train_step(
             self.model, self.train_criterion, self.optimizer,
-            preprocess=preprocess, accum_steps=accum_steps)
+            preprocess=preprocess, accum_steps=accum_steps, mesh=self.mesh,
+            gather=gather)
         self.eval_step = make_eval_step(self.model, self.val_criterion,
-                                        preprocess=preprocess)
+                                        preprocess=preprocess, gather=gather)
 
         # the device frame cache: the splits' frame stacks, the warmup
         # epoch's recorders (ingest_overlap), the K-step launches, and the
@@ -334,33 +413,45 @@ class Trainer:
         has_val = self.val_loader is not None
         self._val_shares_train = (has_val and
                                   frame_sources(val_dataset) == srcs)
+        up = dict(mesh=self.mesh, shard_frames=self._cache_sharded,
+                  num_workers=nw)
+        local_bs = self.train_loader.batch_size
         t0 = time.time()
         if ingest_overlap:
             self._warmup_pending = True
-            self._recorders = [FrameRecorder(src).install() for src in srcs]
+            # over several ranks (or sharded) each rank stages only the
+            # frames it uploads
+            ranged = self._collective_finalize()
+            self._recorders = []
+            for src in srcs:
+                lo, hi = (local_shard_range(len(src), self.mesh) if ranged
+                          else (0, None))
+                self._recorders.append(
+                    FrameRecorder(src, lo=lo, hi=hi).install())
             self._warmup_loader = Loader(
-                train_dataset, cfg.batch_size, shuffle=cfg.shuffle,
-                drop_last=True, seed=cfg.seed, num_workers=nw)
+                train_dataset, local_bs, shuffle=cfg.shuffle,
+                drop_last=True, seed=cfg.seed, rows=self._train_rows,
+                **self._loader_kwargs)
             self._warmup_val_loader = (
-                Loader(val_dataset, cfg.batch_size, shuffle=False,
-                       drop_last=False, seed=cfg.seed, num_workers=nw)
+                Loader(val_dataset, local_bs, shuffle=False,
+                       drop_last=False, seed=cfg.seed, **self._loader_kwargs)
                 if self._val_shares_train else None)
             if has_val and not self._val_shares_train:
                 self._val_frames = upload_dataset_frames(
-                    val_dataset, self.device, num_workers=nw)
+                    val_dataset, self.device, **up)
         else:
             self._train_frames = upload_dataset_frames(
-                train_dataset, self.device, num_workers=nw)
+                train_dataset, self.device, **up)
             self._val_frames = (
                 self._train_frames if self._val_shares_train
-                else upload_dataset_frames(val_dataset, self.device,
-                                           num_workers=nw)
+                else upload_dataset_frames(val_dataset, self.device, **up)
                 if has_val else None)
         self._synchronize()
         self.upload_secs = time.time() - t0
         held = [b for b in (self._train_frames, self._val_frames)
                 if b is not None]
-        print(f"device cache: {sum(b.shape[0] for b in held)} frames, "
+        shard = " (this rank's shard)" if self._cache_sharded else ""
+        print(f"device cache: {sum(b.shape[0] for b in held)} frames{shard}, "
               f"{sum(b.nbytes for b in held) / 2 ** 30:.3f} GiB on "
               f"{self.device} in {self.upload_secs:.2f} s"
               + (" (train split at the end of the warmup epoch)"
@@ -379,14 +470,19 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _collective_finalize(self) -> bool:
+        """Whether the cache uploads through the collective paths (several
+        ranks, or the sharded layout)."""
+        return self.mesh is not None and (self._cache_sharded
+                                          or self.process_count > 1)
+
     def _put(self, imgs: np.ndarray, poses: np.ndarray, index: bool = False):
-        """A host batch on the device. Index batches (the frame cache) go
-        through pinned memory without a host sync."""
-        if index and self.device.type == "cuda":
-            return tuple(torch.from_numpy(a).pin_memory().to(
-                self.device, non_blocking=True) for a in (imgs, poses))
-        return (torch.from_numpy(imgs).to(self.device),
-                torch.from_numpy(poses).to(self.device))
+        """This rank's host batch on its device (the local shard of the
+        global batch: :func:`geomapnet_tpu_torch.parallel.
+        make_global_batch`). Index batches (the frame cache) go through
+        pinned memory without a host sync."""
+        return make_global_batch((imgs, poses), self.device,
+                                 non_blocking=index)
 
     def graph_launches(self) -> dict:
         """Per K-step launch (``train``, ``val``): its replays and the
@@ -404,12 +500,28 @@ class Trainer:
         warmup loader drew."""
         pre_staged = sum(int(r.seen.sum()) for r in self._recorders)
         n_total = sum(r.n for r in self._recorders)
+        nw = self.config.num_workers
         t0 = time.time()
-        stacks = [r.finalize(num_workers=self.config.num_workers)
-                  for r in self._recorders]
-        staging = (np.concatenate(stacks, axis=0) if len(stacks) > 1
-                   else stacks[0])
-        self._train_frames = torch.from_numpy(staging).to(self.device)
+        if self._collective_finalize():
+            # each rank staged its own range; the collective uploads ask
+            # each rank for exactly that range (stragglers out of it come
+            # from the original dataset)
+            staged = [r.as_source(num_workers=nw) for r in self._recorders]
+            if self._cache_sharded:
+                combined = (_ConcatFrames(staged) if len(staged) > 1
+                            else staged[0])
+                self._train_frames = upload_frames_sharded(
+                    combined, self.mesh, num_workers=nw)
+            else:
+                bufs = [upload_frames_global(src, self.mesh, num_workers=nw)
+                        for src in staged]
+                self._train_frames = (torch.cat(bufs) if len(bufs) > 1
+                                      else bufs[0])
+        else:
+            stacks = [r.finalize(num_workers=nw) for r in self._recorders]
+            staging = (np.concatenate(stacks, axis=0) if len(stacks) > 1
+                       else stacks[0])
+            self._train_frames = torch.from_numpy(staging).to(self.device)
         if self._val_shares_train:
             self._val_frames = self._train_frames
         self._synchronize()
@@ -423,13 +535,18 @@ class Trainer:
               f"{pre_staged}/{n_total} frames staged in-epoch")
 
     def _save(self, epoch: int) -> None:
-        save_checkpoint(self.logdir, epoch, self.model, self.train_criterion,
-                        self.optimizer)
+        """Rank 0 writes the checkpoint; every rank waits for it, so a rank
+        that resumes from the shared logdir finds it."""
+        if self.is_main:
+            save_checkpoint(self.logdir, epoch, self.model,
+                            self.train_criterion, self.optimizer)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def validate(self, epoch: int) -> float:
         """The validation loss, weighted by each batch's real (unpadded)
         rows; the per-batch losses stay on the device until one readback."""
-        losses, weights = [], []
+        losses, weights, pads = [], [], []
         batch_time = AverageMeter()
         end = time.time()
         if self._warmup_pending and self._val_frames is None:
@@ -456,7 +573,10 @@ class Trainer:
             batch_time.update(time.time() - end)
             for j, (x, _, pad) in enumerate(chunk):
                 losses.append(chunk_losses[j])
-                weights.append(x.shape[0] - pad)
+                # global valid rows: every rank pads its local tail alike
+                # (checked after the loop)
+                weights.append((x.shape[0] - pad) * self.process_count)
+                pads.append(pad)
                 if (base + j) % self.config.print_freq == 0:
                     print(
                         f"Val {self.experiment}: Epoch {epoch}\t"
@@ -467,8 +587,17 @@ class Trainer:
                     )
             base += len(chunk)
             end = time.time()
+        stacked = torch.stack(losses)
+        if self.mesh is not None:
+            # one collective per validation: the weighted average below is
+            # right only if every rank padded every batch alike
+            assert_same_across_processes(pads, "per-batch val pad counts",
+                                         self.mesh)
+            # each batch's global loss: the mean of the ranks' local ones
+            stacked = self.mesh.all_reduce_(stacked.float()) \
+                / self.process_count
         w = np.asarray(weights, np.float64)
-        host = torch.stack(losses).to("cpu", torch.float64).numpy()
+        host = stacked.to("cpu", torch.float64).numpy()
         val_loss = float(np.dot(host, w) / w.sum())
         print(f"Val {self.experiment}: Epoch {epoch}, val_loss {val_loss:f}")
         self.metrics.write(kind="val", epoch=epoch, step=self.optimizer.count,
@@ -545,7 +674,8 @@ class Trainer:
             if prof is not None and base >= PROFILE_BATCHES:
                 self._stop_profiler(prof)
                 prof = None
-            images += self._frames_per_item * sum(len(c[1]) for c in chunk)
+            images += (self._frames_per_item * self.process_count
+                       * sum(len(c[1]) for c in chunk))
             count = self.optimizer.count
             if launch is not None and len(chunk) == K:
                 # K steps in one launch; timing meters are per launch here
@@ -596,6 +726,7 @@ class Trainer:
             self._save(cfg.n_epochs)
             print(f"Epoch {cfg.n_epochs} checkpoint saved")
         finally:
-            self.tee.uninstall()
-            self.tee.close()
+            if self.tee is not None:
+                self.tee.uninstall()
+                self.tee.close()
             self.metrics.close()

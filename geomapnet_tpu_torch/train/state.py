@@ -24,6 +24,15 @@ forward in the backward (``torch.utils.checkpoint``); the recompute runs
 BatchNorm on the same batch statistics without moving its running
 statistics a second time (:func:`geomapnet_tpu_torch.models.resnet.
 recomputing_batch_norm`).
+
+Data parallel (``mesh``, :func:`geomapnet_tpu_torch.parallel.shard_step`):
+each rank runs its share of every global microbatch (BatchNorm synced over
+the group), and after the microbatch sum and the division by the
+microbatch count the gradients and the loss are all-reduced and averaged in
+one flat bucket, before the clip and the update: the update of JAX's
+global-batch step. The dropout hash runs over the GLOBAL element indices
+of each microbatch (this rank's rows offset by its position), so a W-rank
+step draws the masks of the 1-rank step on the same global batch.
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..models.resnet import recomputing_batch_norm
+from ..parallel.mesh import GradientBucket, shard_step
+from ..parallel.multihost import global_row_offset
 from .optim import Optimizer
 
 __all__ = ["step_keep_mask", "gather_frames", "TrainStep",
@@ -57,14 +68,16 @@ def _mix(x):
 
 
 def step_keep_mask(seed: int, step: torch.Tensor, micro: int, shape,
-                   droprate: float) -> torch.Tensor:
+                   droprate: float, offset: int = 0) -> torch.Tensor:
     """The boolean dropout keep-mask of microbatch ``micro`` of the update
     after ``step`` earlier ones (an int64 tensor, read on its device) in a
     run seeded with ``seed``: each entry kept with probability
-    ``1 - droprate``, from a hash of (seed, step, micro, element index)."""
+    ``1 - droprate``, from a hash of (seed, step, micro, element index).
+    ``offset``: the global index of the mask's first element (a rank's rows
+    start past the rows of the ranks before it)."""
     base = _mix((seed * 1_000_003 + micro * 7_919) & _M31)
     key = _mix((step & _M31) ^ base)
-    idx = torch.arange(math.prod(shape), dtype=torch.int64,
+    idx = torch.arange(offset, offset + math.prod(shape), dtype=torch.int64,
                        device=step.device)
     x = _mix(_mix((idx * _ODD + key) & _M31) ^ key)
     keep = round((1.0 - droprate) * (1 << 24))
@@ -95,6 +108,12 @@ class TrainStep:
         losses, and make one update; the batch must divide evenly
     :param remat: recompute the forward in the backward instead of keeping
         its activations
+    :param mesh: a data-parallel group (see the module docstring); the
+        batch is then this rank's rows of the global batch, microbatch
+        major (:func:`geomapnet_tpu_torch.parallel.microbatch_rows`)
+    :param gather: ``gather(frames, idx)`` reads a device-cache batch
+        (default :func:`gather_frames`; the frame-sharded cache's gather
+        under ``--device_cache shard``)
 
     With ``frames`` (a device frame cache), ``images`` are int frame
     indices (B[, T]) into it. ``keep_masks`` (one boolean (rows, feat_dim)
@@ -105,7 +124,8 @@ class TrainStep:
 
     def __init__(self, model: nn.Module, criterion: nn.Module,
                  optimizer: Optimizer, preprocess: Callable | None = None,
-                 accum_steps: int = 1, remat: bool = False):
+                 accum_steps: int = 1, remat: bool = False,
+                 gather: Callable = gather_frames):
         self.model = model
         self.criterion = criterion
         self.optimizer = optimizer
@@ -115,20 +135,26 @@ class TrainStep:
         posenet = getattr(model, "posenet", model)
         self.droprate = float(getattr(posenet, "droprate", 0.0))
         self.feat_dim = posenet.fc_feat.out_features
+        self.gather = gather
+        self.mesh = None
+        self._bucket = GradientBucket()
 
     def _loss(self, images: torch.Tensor, targets: torch.Tensor,
               frames: torch.Tensor | None, keep_mask: torch.Tensor | None,
               seed: int, micro: int) -> torch.Tensor:
         with torch.no_grad():
             if frames is not None:
-                images = gather_frames(frames, images)
+                images = self.gather(frames, images)
             if self.preprocess is not None:
                 images = self.preprocess(images)
         if keep_mask is None and self.droprate > 0:
-            # one row per forwarded frame: (B[, T], H, W, C) model input
+            # one row per forwarded frame: (B[, T], H, W, C) model input;
+            # this rank's rows follow the lower ranks' in the microbatch
+            shape = (math.prod(images.shape[:-3]), self.feat_dim)
+            row = global_row_offset(self.mesh, shape[0])
             keep_mask = step_keep_mask(
-                seed, self.optimizer.step_t, micro,
-                (math.prod(images.shape[:-3]), self.feat_dim), self.droprate)
+                seed, self.optimizer.step_t, micro, shape, self.droprate,
+                offset=row * self.feat_dim)
         if self.remat:
             out = checkpoint(self.model, images, None, keep_mask,
                              use_reentrant=False, preserve_rng_state=False,
@@ -157,37 +183,47 @@ class TrainStep:
             loss.backward()
             loss = loss.detach()
             total = loss if total is None else total + loss
+        grads = [p.grad for group in self.optimizer.optimizer.param_groups
+                 for p in group["params"] if p.grad is not None]
         if A > 1:
-            grads = [p.grad for group in self.optimizer.optimizer.param_groups
-                     for p in group["params"] if p.grad is not None]
             torch._foreach_div_(grads, float(A))
             total = total / A
+        if self.mesh is not None:
+            # the global-batch gradient and loss: the ranks' mean, in one
+            # all-reduce over a static bucket (capturable in a CUDA graph)
+            self._bucket.all_reduce_mean_(grads + [total.reshape(1)],
+                                          self.mesh)
         self.optimizer.step()
         return total
 
 
 def make_train_step(model: nn.Module, criterion: nn.Module,
                     optimizer: Optimizer, preprocess: Callable | None = None,
-                    accum_steps: int = 1, remat: bool = False) -> TrainStep:
+                    accum_steps: int = 1, remat: bool = False, mesh=None,
+                    gather: Callable = gather_frames) -> TrainStep:
     """The train step of ``model`` under ``criterion`` (see
-    :class:`TrainStep`)."""
-    return TrainStep(model, criterion, optimizer, preprocess, accum_steps,
-                     remat)
+    :class:`TrainStep`), data-parallel over ``mesh`` when given
+    (:func:`geomapnet_tpu_torch.parallel.shard_step`)."""
+    step = TrainStep(model, criterion, optimizer, preprocess, accum_steps,
+                     remat, gather)
+    return step if mesh is None else shard_step(step, mesh)
 
 
 def make_eval_step(model: nn.Module, criterion: nn.Module | None = None,
-                   preprocess: Callable | None = None) -> Callable:
+                   preprocess: Callable | None = None,
+                   gather: Callable = gather_frames) -> Callable:
     """``eval_step(images, targets=None, frames=None) -> (loss, outputs)``
     with the model in eval mode (BatchNorm on its running statistics, no
     dropout) and no gradient; the loss is a zero when there is no criterion
-    or target. With ``frames``, ``images`` are frame indices into it."""
+    or target. With ``frames``, ``images`` are frame indices into it, read
+    by ``gather``."""
 
     def eval_step(images: torch.Tensor, targets: torch.Tensor | None = None,
                   frames: torch.Tensor | None = None):
         model.eval()
         with torch.no_grad():
             if frames is not None:
-                images = gather_frames(frames, images)
+                images = gather(frames, images)
             if preprocess is not None:
                 images = preprocess(images)
             out = model(images)

@@ -95,7 +95,8 @@ def test_new_modules_are_covered():
               "train.optim", "train.state", "train.checkpoint", "train.loop",
               "utils.logger", "cli.train", "data.robotcar_sdk",
               "data.composite", "native", "native.build", "serving",
-              "ops.library", "geometry.align", "cli.tools"):
+              "ops.library", "geometry.align", "cli.tools", "parallel",
+              "parallel.mesh", "parallel.multihost"):
         assert f"geomapnet_tpu_torch.{m}" in mods, m
 
 
@@ -352,6 +353,22 @@ def test_loader_shuffled_drop_last_copy():
     assert len(ours) == len(theirs) == 4
     for a, b in zip(ours, theirs):
         np.testing.assert_array_equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("drop_last", [True, False])
+def test_loader_process_sharding_copy(drop_last):
+    """The process-sharded branch: every process's batches, pads and
+    length equal the original's on a ragged, shuffled dataset."""
+    frames = _Frames(n=11)
+    for p in range(3):
+        kw = dict(shuffle=True, seed=4, drop_last=drop_last,
+                  process_index=p, process_count=3)
+        ours, theirs = list(Loader(frames, 2, **kw)), \
+            list(JaxLoader(frames, 2, **kw))
+        assert len(ours) == len(theirs) == len(Loader(frames, 2, **kw))
+        for a, b in zip(ours, theirs, strict=True):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
 
 
 def test_transforms_copies():

@@ -367,10 +367,16 @@ def test_cli_main_synth(tmp_path):
     ["--native_loader", "--device_cache", "shard"],
     ["--device_cache", "shard"],
 ])
-def test_cli_refuses_unported_flags(scene, mapnet_npz, flag, capsys):
-    """The one unported eval flag (``--device_cache shard``, the
-    frame-sharded cache over several devices) is refused naming its
-    ROADMAP item, alone or beside the flags that slices 4-10 ported."""
+def test_cli_refuses_unported_flags(scene, mapnet_npz, flag, capsys,
+                                    monkeypatch):
+    """``--device_cache shard`` (the frame-sharded cache over the ranks of
+    a launch, ported in slice 11) is refused in a process that no launcher
+    started, naming the launch it needs, alone or beside the flags that
+    slices 4-10 ported (tests/test_torch_dp_eval.py runs it over two
+    ranks)."""
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     with pytest.raises(SystemExit):
         _cli(scene, mapnet_npz, *flag)
-    assert "ROADMAP" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "needs a data-parallel group" in err and "torchrun" in err

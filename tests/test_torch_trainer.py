@@ -14,13 +14,16 @@
   weights and update count restored bit for bit; the refused flags (the
   device-cache flags run: tests/test_torch_train_cache.py; ``--model
   mapnet++`` and ``--camera_models_dir`` too: tests/test_torch_mapnetpp.py,
-  tests/test_torch_robotcar_rgb.py).
+  tests/test_torch_robotcar_rgb.py); ``--device_cache shard`` and
+  ``--distributed`` in one process without a launcher (over two ranks:
+  tests/test_torch_dp_train.py).
 - ``cli.eval --weights`` on a port checkpoint and on an upstream
   ``.pth.tar``; ``load_weights`` of trunk-only imports.
 """
 
 import json
 import os
+import warnings
 from pathlib import Path
 
 import jax
@@ -226,9 +229,6 @@ def resumed_datasets():
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--device_cache", "shard"], "item 17"),
-    (["--native_loader", "--distributed"], "item 17"),
-    (["--distributed"], "item 17"),
     (["--tensorboard"], "item 18"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, capsys, extra, message):
@@ -238,6 +238,43 @@ def test_cli_refuses_unported_flags(tmp_path, capsys, extra, message):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and message in err
+
+
+def test_cli_refuses_a_launch_without_distributed(tmp_path, capsys,
+                                                  monkeypatch):
+    """Several launched processes without ``--distributed`` would train
+    independently into one logdir: refused."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit) as exc:
+        cli_train.main(SYNTH + ["--config_file",
+                                str(_synth_ini(tmp_path, 1))])
+    assert exc.value.code == 2
+    assert "pass --distributed" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--device_cache", "shard"],
+     "device_cache='shard' needs a data-parallel group; using the "
+     "replicated cache"),
+    (["--distributed"], "torch.distributed: process 0/1 on cpu"),
+    (["--distributed", "--no_mesh", "--device_cache"], "process 0/1"),
+], ids=["shard_alone", "distributed_alone", "no_mesh"])
+def test_cli_runs_the_data_parallel_flags_alone(tmp_path, capsys,
+                                                monkeypatch, extra, message):
+    """The data-parallel flags in one process without a launcher: the
+    frame-sharded cache falls back to the replicated one with the JAX
+    Trainer's message, ``--distributed`` warns and trains single-process
+    (tests/test_torch_dp_train.py runs them over two ranks)."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.chdir(tmp_path)
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        trainer = cli_train.main(SYNTH + ["--config_file",
+                                          str(_synth_ini(tmp_path, 1))]
+                                 + extra)
+    assert message in capsys.readouterr().out
+    assert trainer.mesh is None and trainer.optimizer.count > 0
 
 
 def test_cli_refuses_visdom_and_needs_a_card(tmp_path, capsys, monkeypatch):
