@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --grid     # phase 12 alone (no result line)
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -193,10 +194,39 @@ prints no result line):
    validation batch on every rank (replays counted), losses and parameters
    within the train-step bounds of the same run on one card without a
    group; the all-reduce's and reduce-scatter's share of a step's device
-   time from a ``torch.profiler`` trace of 3 eager steps. Then two gloo
-   ranks on card 0 probe each collective the port calls on CUDA tensors;
-   where gloo takes them all, (a) and (b) run again over gloo (eager
-   steps); where it refuses one, the phase prints which.
+   time from a ``torch.profiler`` trace of 3 eager steps; the train
+   images/s against the one-card run of the same configuration and phase
+   8's one-card float32 K=1 rate. Each rank then leaves the group through
+   ``shutdown_distributed`` (no ``os._exit``). (c) ``torchrun
+   --nproc_per_node=W -m geomapnet_tpu_torch.cli.train --distributed``
+   (one epoch, the same flags) and ``-m geomapnet_tpu_torch.cli.eval
+   --device_cache shard`` on phase 8's scene, as a user launches them:
+   each must exit with 0 within ``TORCHRUN_TIMEOUT``, every rank having
+   left the group. Then two gloo ranks on card 0 probe each collective the
+   port calls on CUDA tensors; where gloo takes them all, (a) and (b) run
+   again over gloo (eager steps); where it refuses one, the phase prints
+   which.
+12. The multi-card dry run (``geomapnet_tpu_torch.dryrun``, the port of
+   ``__graft_entry__.dryrun_multichip``) under ``torchrun``: four NCCL
+   ranks, one a card, where four cards are visible, else four gloo ranks
+   sharing card 0 (printed as such; not the four-card check). JAX's nine
+   legs on its tiny MapNet (ResNet(stage_sizes=(1, 1)), feat_dim 64,
+   64x64 tuples, batch 8): dp, dp2xtp2 (the tensor-parallel head; loss
+   within 1e-5 relative and gradients within 1e-2 relative norm of the
+   one-rank step), spatial eval (height banded over ``model``; within
+   1e-4 of the one-rank forward), pp2 and pp2-train (GPipe with
+   stage-sharded packed weights; forward, loss and gradients within 1e-4
+   of the sequential composition), dp2xpp2-train, the device-cache step,
+   two ``KLaunch`` K=2 launches (a CUDA graph on NCCL) and the int8
+   serving artifact on every rank's share of the batch, in which K1 and
+   K2 must launch on every rank (counted from 0 just before the dry run)
+   and every K1 and K2 call must be bit-equal to its plain version on CPU
+   copies of the same inputs (the rank's poses within 1e-5 of the largest
+   of the same artifact loaded on the CPU). The ranks run the package's
+   entry point, ``python -m geomapnet_tpu_torch.dryrun`` (with
+   ``--device cuda:0 --backend gloo`` on fewer than four cards). Prints
+   every leg's line and seconds, the checks' gaps and the dp,
+   tensor-parallel and pipeline step times.
 
 The line before the last is a JSON object with every kernel's launches on
 its main path, error, times and bound; the last line is
@@ -2847,6 +2877,7 @@ PHASE11_EPOCHS = 2
 # float32 noise grows chaotically at 1e-4 (tests/test_torch_train_step.py)
 PHASE11_LR = 1e-5
 PHASE11_TIMEOUT = 300
+TORCHRUN_TIMEOUT = 300
 COLLECTIVES = ("all_reduce", "reduce_scatter_tensor",
                "all_gather_into_tensor", "broadcast")
 
@@ -2910,6 +2941,66 @@ def run_ranks(spec: dict, world: int, local_ranks: list, tmp: Path,
                              f"{tail}")
     return [json.loads((out / f"rank{r}.json").read_text())
             for r in range(world)]
+
+
+def run_torchrun(args: list, nproc: int, cwd: Path, name: str,
+                 timeout: float = TORCHRUN_TIMEOUT) -> dict:
+    """``torchrun --standalone --nproc_per_node=nproc <args>`` from ``cwd``
+    (its own process group, killed whole at ``timeout``); raises on an
+    exit code other than 0 or a timeout. Returns the wall time and the
+    ranks' output."""
+    import os
+    import signal
+
+    log = cwd / f"{name}.log"
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONUNBUFFERED="1",
+               OMP_NUM_THREADS="2")
+    t0 = time.time()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc_per_node={nproc}", *args], cwd=str(cwd), env=env,
+            stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = None
+    wall = time.time() - t0
+    text = log.read_text()
+    if rc != 0:
+        # a rank's own traceback comes before torchrun's summary
+        first = text.find("Traceback (most recent call last)")
+        raise AssertionError(f"{name}: torchrun exit code {rc} after "
+                             f"{wall:.1f} s (timeout {timeout} s); the "
+                             f"first traceback:\n{text[first:first + 4000]}"
+                             f"\nlog tail:\n{text[-1500:]}")
+    return dict(wall=wall, log=text)
+
+
+def check_torchrun_clis(W: int, train: list, eval_argv: list, tmp: Path,
+                        card: str) -> dict:
+    """``cli.train --distributed`` (captured K-step graphs with NCCL
+    collectives inside, then the teardown) and ``cli.eval`` under
+    ``torchrun --nproc_per_node=W``, as a user launches them: each must
+    exit with 0 within its timeout, having left the group itself (no
+    "destroy_process_group() was not called" warning)."""
+    d = tmp / "p11_torchrun"
+    d.mkdir()
+    out = {}
+    for name, args in (
+            ("train", ["-m", "geomapnet_tpu_torch.cli.train",
+                       "--distributed", *train]),
+            ("eval", ["-m", "geomapnet_tpu_torch.cli.eval", *eval_argv])):
+        run = run_torchrun(args, W, d, f"torchrun_{name}")
+        if "destroy_process_group() was not called" in run["log"]:
+            raise AssertionError(f"torchrun {name}: a rank exited without "
+                                 f"leaving the group")
+        out[name] = run["wall"]
+        print(f"phase 11 torchrun --nproc_per_node={W} cli.{name}: exit 0 "
+              f"in {run['wall']:.1f} s, group left by every rank ({card})")
+    return out
 
 
 def _probe_collectives(mesh, device) -> dict:
@@ -3001,8 +3092,11 @@ def dp_rank_main(spec_path: str) -> int:
     from geomapnet_tpu_torch.cli import eval as cli_eval
     from geomapnet_tpu_torch.cli import train as cli_train
     from geomapnet_tpu_torch.ops import cuda_image, cuda_quant
-    from geomapnet_tpu_torch.parallel import initialize_distributed, \
-        make_mesh
+    from geomapnet_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        shutdown_distributed,
+    )
 
     spec = json.loads(Path(spec_path).read_text())
     out = Path(spec["out"])
@@ -3069,11 +3163,11 @@ def dp_rank_main(spec_path: str) -> int:
             result["train"]["profile"] = _collective_share(
                 trainer, out, f"{spec['name']}_rank{rank}")
     (out / f"rank{rank}.json").write_text(json.dumps(result))
-    # NCCL's destroy_process_group hung at 4 ranks on the card's machine,
-    # after every result was written: the rank exits without the teardown
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(0)
+    # the rank leaves the group as the CLIs do: its train launches' CUDA
+    # graphs dropped (destroy_process_group hangs while a graph that
+    # captured an NCCL collective is alive), a barrier, the teardown
+    shutdown_distributed(device)
+    return 0
 
 
 def _train_logs(logdir: Path) -> tuple:
@@ -3141,10 +3235,11 @@ def _compare_train(ranks_dir: Path, one_dir: Path, control_dir: Path,
 
 
 def check_data_parallel(p4: dict, root: Path, tmp: Path, config_file: Path,
-                        card: str, gloo: bool = True) -> dict:
+                        card: str, f32_k1: float, gloo: bool = True) -> dict:
     """Phase 11: data-parallel eval and training over ``torch.distributed``
-    through the CLIs, one rank per card (NCCL), and (``gloo``) two gloo
-    ranks on one card where gloo takes CUDA tensors."""
+    through the CLIs, one rank per card (NCCL), the CLIs under torchrun,
+    and (``gloo``) two gloo ranks on one card where gloo takes CUDA
+    tensors. ``f32_k1``: phase 8's one-card float32 K=1 train images/s."""
 
     t_phase = time.time()
     n_cards = torch.cuda.device_count()
@@ -3257,6 +3352,8 @@ def check_data_parallel(p4: dict, root: Path, tmp: Path, config_file: Path,
                     k4=sum(r["k4"] for r in runs),
                     profile=runs[0].get("profile"))
 
+    one_rate = {}
+
     def one_card(argv: list, name: str) -> tuple:
         """The same training on one card without a group (the same global
         batches), and its one-ulp control, under deterministic cuDNN;
@@ -3270,6 +3367,7 @@ def check_data_parallel(p4: dict, root: Path, tmp: Path, config_file: Path,
                 argv_ = [str(start) if a == str(init) else a for a in argv]
                 trainer, _ = run_train_cli(argv_ + ["--device_cache"], d)
                 dirs.append(d / trainer.logdir)
+                one_rate.setdefault("f32", steady(trainer)["images_per_s"])
                 del trainer
                 torch.cuda.empty_cache()
         finally:
@@ -3291,8 +3389,28 @@ def check_data_parallel(p4: dict, root: Path, tmp: Path, config_file: Path,
                        for n in evals)
                 for k in ("int8_conv", "int8_maxpool3x3s2")}
     launches["K4"] = trained["k4"]
+    one = one_rate["f32"]
+    print(f"phase 11 (b) NCCL W={W} train {trained['images_per_s']:.1f} "
+          f"images/s (all ranks, K={PHASE8_K}) = "
+          f"{trained['images_per_s'] / one:.3f}x the one-card run of the "
+          f"same configuration ({one:.1f}) and "
+          f"{trained['images_per_s'] / f32_k1:.3f}x phase 8's one-card "
+          f"float32 K=1 ({f32_k1:.1f}) ({card})")
     out = dict(W=W, backend="nccl", wall=nccl_wall, eval_rates=rates,
-               train=trained, launches=launches)
+               train=trained, launches=launches, one_card=one)
+
+    # the CLIs as a user launches them, one epoch, then the group's teardown
+    cli_ini = write_train_ini(tmp, config_file, 1, "mapnet_dp_cli",
+                              lr=PHASE11_LR, dropout=0.0)
+    cli_train = [a if a != str(ini) else str(cli_ini) for a in train]
+    rc_eval = ["--dataset", "RobotCar", "--scene", "loop", "--model",
+               "mapnet", "--trunk", "resnet34", "--raw_bayer", "--val",
+               "--weights", str(init), "--config_file", str(config_file),
+               "--batch_size", "20", "--data_path", str(root / "deepslam"),
+               "--asset_root", str(root / "assets"), "--device_cache",
+               "shard"]
+    out["torchrun"] = check_torchrun_clis(
+        W, cli_train + ["--device_cache", "shard"], rc_eval, tmp, card)
 
     if gloo:
         # two gloo ranks sharing card 0: used only if gloo takes CUDA tensors
@@ -3337,6 +3455,72 @@ def check_data_parallel(p4: dict, root: Path, tmp: Path, config_file: Path,
              f" collectives' share {out['gloo']['profile']}"
              if "gloo" in out else ""))
     return out
+
+
+# ---------------------------------------------------------------- phase 12
+
+PHASE12_RANKS = 4
+PHASE12_REPEATS = 5
+PHASE12_TIMEOUT = 300
+
+
+def check_grid(tmp: Path, card: str) -> dict:
+    """Phase 12: ``dryrun_multichip(4)`` under ``torchrun``: four NCCL
+    ranks, one a card, where four cards are visible, else four gloo ranks
+    sharing card 0 (not the four-card check). Every leg must pass its bars
+    (the dry run raises otherwise: the serving artifact's K1 and K2 calls
+    against their plain versions too) and K1 and K2 must launch in the
+    serving artifact on every rank. Returns the launches summed over the
+    ranks."""
+    n = PHASE12_RANKS
+    nccl = torch.cuda.device_count() >= n
+    out = tmp / "p12"
+    out.mkdir()
+    what = (f"{n} NCCL ranks, one a card" if nccl else
+            f"{n} gloo ranks sharing card 0 ({torch.cuda.device_count()} "
+            f"card(s) visible; not the four-card check)")
+    # the package's entry point, as a user launches it; each rank sets the
+    # kernels' counters to 0 just before the dry run and writes them
+    run = run_torchrun(["-m", "geomapnet_tpu_torch.dryrun", "--repeats",
+                        str(PHASE12_REPEATS), "--out", str(out)]
+                       + ([] if nccl else ["--device", "cuda:0",
+                                           "--backend", "gloo"]),
+                       n, out, "p12_torchrun", timeout=PHASE12_TIMEOUT)
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(n)]
+    for line in ranks[0]["lines"]:
+        print(f"phase 12 {line}")
+    legs = ranks[0]["legs"]
+    print(f"phase 12 checks ({what}): tp loss {legs['tp']['loss_gap']:.3g} "
+          f"relative, gradients {legs['tp']['grad_relnorm']:.3g} relative "
+          f"norm (worst {legs['tp']['worst']}); spatial eval "
+          f"{legs['spatial']['gap']:.3g}; pp2 forward "
+          f"{legs['pp2']['gap']:.3g}; pp2-train loss "
+          f"{legs['pp2-train']['loss_gap']:.3g} gradient "
+          f"{legs['pp2-train']['grad_gap']:.3g}; dp2xpp2-train loss "
+          f"{legs['dp2xpp2-train']['loss_gap']:.3g} gradient "
+          f"{legs['dp2xpp2-train']['grad_gap']:.3g}; scan2 graph "
+          f"{legs['dp-devicecache-scan2-train']['graph']}; serving: int8 "
+          f"calls bit-equal to the plain versions by rank "
+          f"{[r['legs']['serving-artifact-dp']['int8_calls'] for r in ranks]}"
+          f", poses off the CPU load by "
+          f"{[r['legs']['serving-artifact-dp']['gap'] for r in ranks]}")
+    steps = {k: round(legs[k]["step_ms"], 3) for k in
+             ("dp", "tp", "pp2-train", "dp2xpp2-train")}
+    print(f"phase 12 step ms (mean of {PHASE12_REPEATS}, rank 0): {steps}; "
+          f"leg seconds {({k: round(v['seconds'], 2) for k, v in legs.items()})}"
+          f"; torchrun wall {run['wall']:.1f} s ({card})")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ("int8_conv", "int8_maxpool3x3s2")}
+    for r, rk in enumerate(ranks):
+        if not (rk["launches"]["int8_conv"] and
+                rk["launches"]["int8_maxpool3x3s2"]):
+            raise AssertionError(f"phase 12 rank {r}: K1/K2 did not launch "
+                                 f"in the serving artifact: "
+                                 f"{rk['launches']}")
+    print(f"phase 12: K1/K2 launches by rank "
+          f"{[rk['launches'] for rk in ranks]}")
+    return launches
 
 
 def main() -> int:
@@ -3538,7 +3722,15 @@ def main() -> int:
               f"({card}); launches {p10}")
 
         # phase 11: data-parallel eval and training over torch.distributed
-        p11 = check_data_parallel(p4, root, tmp, config_file, card)["launches"]
+        p11 = check_data_parallel(p4, root, tmp, config_file, card,
+                                  cache_runs["f32_k1"]["images_per_s"]
+                                  )["launches"]
+
+        # phase 12: the dry run's legs: tensor parallelism, spatial
+        # partitioning, GPipe, the device cache, the serving artifact
+        t0 = time.time()
+        p12 = check_grid(tmp, card)
+        print(f"phase 12: {time.time() - t0:.2f} s ({card})")
 
     f32 = kernel["float32"]
     # K4's bound: each mosaic byte read once, each float32 output written
@@ -3564,7 +3756,7 @@ def main() -> int:
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": (int8_launches["int8_conv"] + p10["int8_conv"]
-                     + p11["int8_conv"]),
+                     + p11["int8_conv"] + p12["int8_conv"]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -3577,7 +3769,8 @@ def main() -> int:
         "source": K2_SOURCE,
         "replaces": K2_REPLACES,
         "launches": (int8_launches["int8_maxpool3x3s2"]
-                     + p10["int8_maxpool3x3s2"] + p11["int8_maxpool3x3s2"]),
+                     + p10["int8_maxpool3x3s2"] + p11["int8_maxpool3x3s2"]
+                     + p12["int8_maxpool3x3s2"]),
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -3596,4 +3789,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":
         sys.exit(dp_rank_main(sys.argv[2]))
+    if sys.argv[1:] == ["--grid"]:      # phase 12 alone, no result line
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+            print(check_grid(Path(d), card_line()))
+        sys.exit(0)
     sys.exit(main())

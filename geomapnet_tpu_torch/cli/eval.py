@@ -579,6 +579,23 @@ def _calibration_batches(dataset, is_tuple: bool, read, idx_mat,
 
 
 def main(argv=None) -> dict:
+    """The CLI on ``argv`` (default: the command line). Under a launcher it
+    joins the process group, and a run that joined it leaves it when done
+    (:func:`~geomapnet_tpu_torch.parallel.shutdown_distributed`); a caller
+    that formed the group keeps it. A rank that fails leaves without the
+    teardown, whose barrier its peers might never reach."""
+    import torch.distributed as dist
+
+    from ..parallel import shutdown_distributed
+
+    joined = not (dist.is_available() and dist.is_initialized())
+    out = _main(argv)
+    if joined:
+        shutdown_distributed()
+    return out
+
+
+def _main(argv=None) -> dict:
     parser = argparse.ArgumentParser(
         description="Evaluation script for PoseNet and MapNet (PyTorch)"
     )

@@ -35,7 +35,23 @@ from torch import nn
 from .resnet import ResNet, kaiming_normal_, resnet34
 
 __all__ = ["PoseNet", "MapNet", "Linear", "dropout_keep_mask",
-           "nan_grad_guard"]
+           "nan_grad_guard", "posenet_head_apply"]
+
+
+def posenet_head_apply(params: dict, feats: torch.Tensor) -> torch.Tensor:
+    """The deterministic-eval PoseNet head as a function of its parameters:
+    ``fc_feat -> relu -> fc_xyz / fc_wpqr -> concat`` (dropout is the
+    identity in eval), for callers that split the model at the trunk|head
+    boundary (pipeline stages). ``params``: ``{"fc_feat": {"weight",
+    "bias"}, "fc_xyz": ..., "fc_wpqr": ...}`` in ``nn.Linear``'s layout
+    (weight (out, in)); the JAX package's ``posenet_head_apply`` takes the
+    Flax layout."""
+    h = torch.relu(F.linear(feats, params["fc_feat"]["weight"],
+                            params["fc_feat"]["bias"]))
+    xyz = F.linear(h, params["fc_xyz"]["weight"], params["fc_xyz"]["bias"])
+    wpqr = F.linear(h, params["fc_wpqr"]["weight"],
+                    params["fc_wpqr"]["bias"])
+    return torch.cat([xyz, wpqr], dim=-1).float()
 
 
 class Linear(nn.Linear):

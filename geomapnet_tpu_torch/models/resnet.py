@@ -245,6 +245,14 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
+        if not self.training and self.running_mean.requires_grad:
+            # statistics that require grad (a functional call on packed
+            # pipeline weights): F.batch_norm refuses them, so normalize as
+            # Flax's eval BatchNorm does, differentiably
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return ((x - self.running_mean.view(shape)) * mul.view(shape)
+                    + self.bias.view(shape))
         frozen = _RECOMPUTING.get()
         mesh = self.sync_mesh if self.training else None
         if not self.training or not (frozen or self.bf16_backward

@@ -10,8 +10,15 @@ with ``torch.distributed`` collectives: NCCL on the card, gloo on the CPU.
 - :class:`DataParallel` (built by :func:`make_mesh`) stands for the mesh:
   world size, rank, device and process group, and the collectives the port
   calls on it (``all_reduce``, ``all_gather_into_tensor``,
-  ``reduce_scatter_tensor``, ``broadcast``). Without a process group it is
-  the one-process mesh and every collective is the identity.
+  ``reduce_scatter_tensor``, ``broadcast``, and the point-to-point
+  :meth:`DataParallel.exchange`). Without a process group it is the
+  one-process mesh and every collective is the identity.
+- :class:`Grid` (``make_mesh(axis_names=..., shape=...)``) is JAX's
+  multi-axis mesh: the ranks arranged row-major into ``shape`` (the
+  trailing axis groups adjacent ranks), with one :class:`DataParallel`
+  per axis, this rank's sub-group along it. Tensor parallelism, spatial
+  sharding and the pipeline (:mod:`.tensor`, :mod:`.pipeline`) run on its
+  sub-groups.
 - :func:`shard_batch` takes this rank's rows of a global batch;
   :func:`microbatch_rows` says which rows of a global batch a rank holds
   when the step accumulates microbatches (JAX reshapes the GLOBAL batch
@@ -41,6 +48,7 @@ import torch
 
 __all__ = [
     "DataParallel",
+    "Grid",
     "make_mesh",
     "shard_batch",
     "microbatch_rows",
@@ -130,12 +138,102 @@ class DataParallel:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
+    @property
+    def p2p(self) -> bool:
+        """Whether :meth:`exchange` sends point to point: gloo sends only
+        host memory, so a gloo group on a card exchanges through an
+        all-gather on the card instead."""
+        return not (self.backend == "gloo" and self.device.type == "cuda")
+
+    def exchange(self, sends: dict, recvs: dict, numel: int,
+                 dtype: torch.dtype = torch.float32) -> None:
+        """Send ``sends[q]`` to group rank ``q`` and fill ``recvs[q]`` from
+        rank ``q``, for every ``q`` at once. Every rank calls it, with or
+        without messages; ``numel`` is the largest message any rank sends
+        in this call and ``dtype`` every message's, the same on every
+        rank.
+
+        Point to point (``batch_isend_irecv``) where the backend sends the
+        tensors' memory; otherwise (:attr:`p2p`) each rank packs its
+        messages into ``world_size`` slots of ``numel`` elements, one
+        all-gather delivers every slot, and each rank copies out the slots
+        addressed to it. Nothing goes through the host."""
+        if self.group is None:
+            if sends or recvs:
+                raise ValueError("a one-process mesh has no peer")
+            return
+        dist = _dist()
+        if self.p2p:
+            ops = [dist.P2POp(dist.isend, t.contiguous(),
+                              dist.get_global_rank(self.group, q), self.group)
+                   for q, t in sends.items()]
+            ops += [dist.P2POp(dist.irecv, t,
+                               dist.get_global_rank(self.group, q), self.group)
+                    for q, t in recvs.items()]
+            if ops:
+                for work in dist.batch_isend_irecv(ops):
+                    work.wait()
+            return
+        slots = torch.zeros((self.world_size, numel), dtype=dtype,
+                            device=self.device)
+        for q, t in sends.items():
+            slots[q, :t.numel()] = t.reshape(-1)
+        every = self.all_gather(slots.reshape(1, -1)).view(
+            self.world_size, self.world_size, numel)
+        for q, t in recvs.items():
+            t.copy_(every[q, self.rank, :t.numel()].view(t.shape))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Grid:
+    """A multi-axis mesh: JAX's ``Mesh(devices.reshape(shape),
+    axis_names)`` over ranks, one process per rank.
+
+    :param axis_names: one name per axis, e.g. ``("data", "model")``
+    :param sizes: the ranks along each axis
+    :param coords: this rank's index along each axis
+    :param axes: this rank's sub-group along each axis (the ranks that
+        share its other coordinates), in axis order
+    :param device: the device this rank computes on
+    """
+
+    axis_names: tuple
+    sizes: tuple
+    coords: tuple
+    axes: tuple
+    device: torch.device
+
+    @property
+    def shape(self) -> dict:
+        """``{axis: size}``, as JAX's ``mesh.shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    def __getitem__(self, axis: str) -> DataParallel:
+        """This rank's sub-group along ``axis``."""
+        return self.axes[self.axis_names.index(axis)]
+
+    def index(self, axis: str) -> int:
+        """This rank's index along ``axis`` (its rank in that sub-group)."""
+        return self.coords[self.axis_names.index(axis)]
+
 
 def make_mesh(device: torch.device | str | None = None,
-              group: Any = None) -> DataParallel:
+              group: Any = None, axis_names: tuple = ("data",),
+              shape: tuple | None = None,
+              ranks: Sequence[int] | None = None
+              ) -> DataParallel | Grid | None:
     """The data-parallel group of this process: every rank of ``group``
     (default: the whole ``torch.distributed`` world once it is
     initialized, else the one-process mesh).
+
+    With ``axis_names`` other than ``("data",)``, a ``shape`` or ``ranks``,
+    a :class:`Grid` instead: ``ranks`` (default: every rank of the world;
+    JAX's ``devices``) arranged row-major into ``shape`` (one extent per
+    axis, a single -1 inferred; JAX's ``make_mesh(devices, axis_names,
+    shape)``). Every rank of the world must make the same call, since every
+    sub-group is created on every rank in one order; a rank outside
+    ``ranks`` gets None. The sub-groups' communicators are set up before
+    it returns (one barrier on each of this rank's sub-groups).
 
     :param device: where this rank computes (default: the card named by
         ``LOCAL_RANK``; see :func:`geomapnet_tpu_torch.parallel.multihost.
@@ -145,11 +243,50 @@ def make_mesh(device: torch.device | str | None = None,
 
     device = local_device() if device is None else torch.device(device)
     dist = _dist()
-    if dist.is_available() and dist.is_initialized():
-        group = dist.group.WORLD if group is None else group
-        return DataParallel(dist.get_world_size(group),
-                            dist.get_rank(group), device, group)
-    return DataParallel(1, 0, device, None)
+    up = dist.is_available() and dist.is_initialized()
+    if axis_names == ("data",) and shape is None and ranks is None:
+        if up:
+            group = dist.group.WORLD if group is None else group
+            return DataParallel(dist.get_world_size(group),
+                                dist.get_rank(group), device, group)
+        return DataParallel(1, 0, device, None)
+    axis_names = tuple(axis_names)
+    if ranks is None:
+        ranks = range(dist.get_world_size() if up else 1)
+    ranks = [int(r) for r in ranks]
+    if shape is None:
+        if len(axis_names) != 1:
+            raise ValueError(
+                f"mesh with axes {axis_names} needs an explicit shape")
+        shape = (-1,)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"shape {shape} does not match axes {axis_names}")
+    try:
+        grid = np.asarray(ranks).reshape(shape)
+    except ValueError:
+        raise ValueError(
+            f"cannot arrange {len(ranks)} devices into a {shape} "
+            f"{axis_names} mesh") from None
+    me = dist.get_rank() if up else 0
+    where = np.argwhere(grid == me)
+    coords = tuple(int(c) for c in where[0]) if len(where) else None
+    axes = []
+    for a in range(grid.ndim):
+        # every line of ranks along axis a, in one order on every rank
+        lines = np.moveaxis(grid, a, -1).reshape(-1, grid.shape[a])
+        mine = None
+        for line in lines:
+            line = [int(r) for r in line]
+            sub = dist.new_group(line) if up else None
+            if me in line:
+                mine = DataParallel(len(line), line.index(me), device, sub)
+        axes.append(mine)
+    if coords is None:
+        return None
+    for ax in axes:
+        ax.barrier()
+    return Grid(axis_names, tuple(int(n) for n in grid.shape), coords,
+                tuple(axes), device)
 
 
 def shard_batch(batch: Any, mesh: DataParallel, axis: str = "data") -> Any:

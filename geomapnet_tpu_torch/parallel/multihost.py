@@ -18,15 +18,19 @@ of the local batches is the global batch, as in the JAX package.
 from __future__ import annotations
 
 import datetime
+import inspect
 import os
 import warnings
-from typing import Any
+import weakref
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 __all__ = [
     "initialize_distributed",
+    "on_shutdown",
+    "shutdown_distributed",
     "is_distributed",
     "process_index",
     "process_count",
@@ -38,6 +42,9 @@ __all__ = [
 ]
 
 _LAUNCHER_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+# weak references to the callables that shutdown_distributed runs first
+_SHUTDOWN_HOOKS: list = []
 
 
 def _dist():
@@ -105,6 +112,46 @@ def initialize_distributed(
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
     return dist.get_rank(), dist.get_world_size()
+
+
+def on_shutdown(fn: Callable[[], None]) -> None:
+    """Have :func:`shutdown_distributed` call ``fn()`` before it tears the
+    group down: an owner of a CUDA graph that captured one of the group's
+    NCCL collectives drops it there (``destroy_process_group()`` waits on
+    such a graph for ever, NCCL 2.28 and torch 2.11). ``fn`` is held
+    weakly (a bound method through its object), so registering keeps
+    nothing alive."""
+    ref = weakref.WeakMethod(fn) if inspect.ismethod(fn) else weakref.ref(fn)
+    _SHUTDOWN_HOOKS[:] = [r for r in _SHUTDOWN_HOOKS if r() is not None]
+    _SHUTDOWN_HOOKS.append(ref)
+
+
+def shutdown_distributed(device: torch.device | str | None = None) -> None:
+    """Leave the process group that :func:`initialize_distributed` joined:
+    the :func:`on_shutdown` hooks run (every train launch's CUDA graph
+    dropped), a barrier on the group's device (an all-reduce of one
+    element, so every rank's queued collectives have run), the card
+    synchronized, then ``destroy_process_group()``. Does nothing without a
+    group.
+
+    :param device: the device the group's collectives run on (default: the
+        current card for NCCL, the CPU for gloo)
+    """
+    dist = _dist()
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    for ref in list(_SHUTDOWN_HOOKS):
+        fn = ref()
+        if fn is not None:
+            fn()
+    if device is None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if dist.get_backend() == "nccl" else torch.device("cpu"))
+    device = torch.device(device)
+    dist.all_reduce(torch.zeros(1, device=device))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dist.destroy_process_group()
 
 
 def is_distributed() -> bool:

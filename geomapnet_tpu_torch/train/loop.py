@@ -71,6 +71,7 @@ from ..parallel.multihost import (
     assert_same_across_processes,
     local_batch_size,
     make_global_batch,
+    on_shutdown,
     process_count,
 )
 from ..utils.logger import AverageMeter, MetricsWriter, Tee
@@ -112,6 +113,13 @@ def _kernel_launches() -> dict:
     return {"demosaic_half_normalize": cuda_image.launches}
 
 
+def _gloo_group() -> bool:
+    import torch.distributed as dist
+
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_backend() == "gloo")
+
+
 class KLaunch:
     """``launch(idx_k, poses_k, frames) -> (K,) losses``: ``body(idx, poses,
     frames) -> loss`` for each of K stacked index batches, as one launch.
@@ -124,20 +132,32 @@ class KLaunch:
     were at capture, so a launch with another ``frames`` tensor raises.
     Kernel wrappers count a launch at capture, not at replay:
     ``per_replay`` holds each counter's launches in one capture and
-    ``replays`` the replays. On the CPU the K bodies run eagerly over the
-    same buffers.
+    ``replays`` the replays. On the CPU, or in a process whose
+    ``torch.distributed`` group is gloo's (a graph cannot capture its
+    collectives), the K bodies run eagerly over the same buffers.
     """
 
     def __init__(self, body: Callable, k: int, device: torch.device):
+        # a process group's teardown drops the graph first
+        on_shutdown(self.release)
         self.body = body
         self.k = int(k)
         self.device = torch.device(device)
+        self.capture = self.device.type == "cuda" and not _gloo_group()
         self.graph = None
         self.warmed = False
         self.replays = 0
         self.per_replay: dict = {}
         self._idx = self._poses = self._out = None
         self._frames_ptr = None
+
+    def release(self) -> None:
+        """Drop the captured graph and its output buffer; a later launch
+        captures anew. A graph that captured an NCCL collective must be
+        gone before its process group is destroyed:
+        ``destroy_process_group()`` waits on it for ever (NCCL 2.28,
+        torch 2.11)."""
+        self.graph = self._out = self._frames_ptr = None
 
     def _stage(self, idx_k: np.ndarray, poses_k: np.ndarray) -> None:
         if self._idx is None or self._idx.shape != idx_k.shape:
@@ -164,7 +184,7 @@ class KLaunch:
             raise ValueError(f"a launch takes {self.k} batches, got "
                              f"{len(idx_k)}")
         self._stage(idx_k, poses_k)
-        if self.device.type != "cuda":
+        if not self.capture:
             return self._run(frames)
         current = torch.cuda.current_stream(self.device)
         if self.graph is None:

@@ -102,6 +102,8 @@ class Optimizer:
         self.clip_params = list(clip_params)
         self.max_grad_norm = float(max_grad_norm or 0.0)
         self.count = 0
+        self._sharded: set = set()
+        self._shard_mesh = None
         self.step_t = torch.zeros((), dtype=torch.int64,
                                   device=self.clip_params[0].device)
         self.lr_t = lr_t
@@ -120,6 +122,14 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
+    def shard_clip(self, params, mesh) -> None:
+        """Mark ``params`` as blocks of logical tensors split over ``mesh``
+        (tensor parallelism): the clip's global norm then sums their
+        squared norms over the group and counts the other parameters
+        once."""
+        self._sharded = {id(p) for p in params}
+        self._shard_mesh = mesh
+
     def clip(self) -> None:
         """optax's ``clip_by_global_norm`` over ``clip_params``: gradients
         scaled by ``max_norm / norm`` when their global norm reaches
@@ -127,8 +137,20 @@ class Optimizer:
         grads = [p.grad for p in self.clip_params if p.grad is not None]
         if not grads:
             return
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g) for g in grads]))
+        if self._shard_mesh is not None:
+            def sq(gs):
+                return sum(torch.linalg.vector_norm(g).square() for g in gs)
+
+            held = [p.grad for p in self.clip_params
+                    if p.grad is not None and id(p) in self._sharded]
+            rest = [p.grad for p in self.clip_params
+                    if p.grad is not None and id(p) not in self._sharded]
+            blocks = self._shard_mesh.all_reduce_(
+                sq(held).reshape(1) if held else grads[0].new_zeros(1))
+            norm = torch.sqrt(sq(rest) + blocks[0])
+        else:
+            norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g) for g in grads]))
         scale = torch.where(norm < self.max_grad_norm,
                             torch.ones_like(norm), self.max_grad_norm / norm)
         torch._foreach_mul_(grads, scale)

@@ -68,17 +68,28 @@ def _mix(x):
 
 
 def step_keep_mask(seed: int, step: torch.Tensor, micro: int, shape,
-                   droprate: float, offset: int = 0) -> torch.Tensor:
+                   droprate: float, offset: int = 0,
+                   columns: tuple[int, int] | None = None) -> torch.Tensor:
     """The boolean dropout keep-mask of microbatch ``micro`` of the update
     after ``step`` earlier ones (an int64 tensor, read on its device) in a
     run seeded with ``seed``: each entry kept with probability
     ``1 - droprate``, from a hash of (seed, step, micro, element index).
     ``offset``: the global index of the mask's first element (a rank's rows
-    start past the rows of the ranks before it)."""
+    start past the rows of the ranks before it). ``columns`` = (first
+    column, full width): the (rows, cols) ``shape`` is that block of
+    columns of a row-major mask ``width`` wide (a tensor-parallel rank's
+    share of the features)."""
     base = _mix((seed * 1_000_003 + micro * 7_919) & _M31)
     key = _mix((step & _M31) ^ base)
-    idx = torch.arange(offset, offset + math.prod(shape), dtype=torch.int64,
-                       device=step.device)
+    if columns is None:
+        idx = torch.arange(offset, offset + math.prod(shape),
+                           dtype=torch.int64, device=step.device)
+    else:
+        first, width = columns
+        rows = torch.arange(shape[0], dtype=torch.int64, device=step.device)
+        cols = torch.arange(first, first + shape[1], dtype=torch.int64,
+                            device=step.device)
+        idx = (offset + rows[:, None] * width + cols[None, :]).reshape(-1)
     x = _mix(_mix((idx * _ODD + key) & _M31) ^ key)
     keep = round((1.0 - droprate) * (1 << 24))
     return ((x & 0xFFFFFF) < keep).view(shape)
@@ -137,6 +148,9 @@ class TrainStep:
         self.feat_dim = posenet.fc_feat.out_features
         self.gather = gather
         self.mesh = None
+        # (first column, full width) of this rank's dropout features under
+        # tensor parallelism (shard_step_tp)
+        self.mask_columns = None
         self._bucket = GradientBucket()
 
     def _loss(self, images: torch.Tensor, targets: torch.Tensor,
@@ -152,9 +166,11 @@ class TrainStep:
             # this rank's rows follow the lower ranks' in the microbatch
             shape = (math.prod(images.shape[:-3]), self.feat_dim)
             row = global_row_offset(self.mesh, shape[0])
+            width = (self.feat_dim if self.mask_columns is None
+                     else self.mask_columns[1])
             keep_mask = step_keep_mask(
                 seed, self.optimizer.step_t, micro, shape, self.droprate,
-                offset=row * self.feat_dim)
+                offset=row * width, columns=self.mask_columns)
         if self.remat:
             out = checkpoint(self.model, images, None, keep_mask,
                              use_reentrant=False, preserve_rng_state=False,

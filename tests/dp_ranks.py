@@ -43,11 +43,20 @@ def _entry(rank: int, world: int, port: int, name: str, backend: str,
     from geomapnet_tpu_torch.parallel import initialize_distributed, \
         make_mesh
 
+    device = device.format(rank=rank)
+
     try:
         initialize_distributed(f"127.0.0.1:{port}", world, rank,
                                backend=backend, device=device,
                                timeout_s=120)
-        result = globals()[f"rank_{name}"](make_mesh(device), **kwargs)
+        if ":" in name:     # "module:case": rank_<case> of another module
+            import importlib
+
+            module, name = name.split(":")
+            fn = getattr(importlib.import_module(module), f"rank_{name}")
+        else:
+            fn = globals()[f"rank_{name}"]
+        result = fn(make_mesh(device), **kwargs)
         with open(Path(out) / f"rank{rank}.pkl", "wb") as f:
             pickle.dump(result, f)
     except BaseException:
@@ -56,14 +65,17 @@ def _entry(rank: int, world: int, port: int, name: str, backend: str,
         os._exit(1)
     import torch.distributed as dist
 
-    dist.destroy_process_group()
+    if dist.is_initialized():   # a rank may have left the group itself
+        dist.destroy_process_group()
 
 
 def run_group(name: str, world: int, timeout: float = 240.0,
               backend: str = "gloo", device: str = "cpu", **kwargs) -> list:
     """``rank_<name>(mesh, **kwargs)`` on each rank of a ``world``-rank
     group (gloo ranks on the CPU by default); the ranks' results in rank
-    order."""
+    order. ``name`` may be ``"module:case"``: ``rank_<case>`` of that
+    module (importable from ``tests/``). ``device`` may name the rank,
+    ``"cuda:{rank}"``: one card a rank."""
     ctx = torch.multiprocessing.get_context("spawn")
     port = free_port()
     with tempfile.TemporaryDirectory() as out:

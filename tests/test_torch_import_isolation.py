@@ -96,8 +96,43 @@ def test_new_modules_are_covered():
               "utils.logger", "cli.train", "data.robotcar_sdk",
               "data.composite", "native", "native.build", "serving",
               "ops.library", "geometry.align", "cli.tools", "parallel",
-              "parallel.mesh", "parallel.multihost"):
+              "parallel.mesh", "parallel.multihost", "parallel.tensor",
+              "parallel.pipeline", "dryrun"):
         assert f"geomapnet_tpu_torch.{m}" in mods, m
+
+
+@pytest.mark.parametrize("module", ("parallel.tensor", "parallel.pipeline",
+                                    "dryrun"))
+def test_grid_modules_import_neither_jax_nor_the_jax_package(module):
+    """Tensor parallelism, the pipeline and the dry run import in a fresh
+    interpreter where the JAX stack and ``geomapnet_tpu`` are unimportable,
+    load neither, and name neither in an import statement."""
+    blocked = BLOCKED + ("geomapnet_tpu",)
+    code = (
+        "import sys\n"
+        f"for name in {blocked!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"importlib.import_module('geomapnet_tpu_torch.{module}')\n"
+        "loaded = [k for k, v in sys.modules.items()\n"
+        f"          if v is not None and k.split('.')[0] in {blocked!r}]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+    path = PKG / (module.replace(".", "/") + ".py")
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in blocked, f"{path}: {n}"
 
 
 def test_no_module_names_jax():
