@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --grid     # phase 12 alone (no result line)
+    python3 chip_smoke.py --vidloc   # phase 13 alone, on its own small
+                                     # scene and logdir (no result line)
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -227,6 +229,32 @@ prints no result line):
    ``--device cuda:0 --backend gloo`` on fewer than four cards). Prints
    every leg's line and seconds, the checks' gaps and the dp,
    tensor-parallel and pipeline step times.
+13. VidLoc, saliency, the dashboard and the optional packages. (a) VidLoc
+   at full width (ResNet-34 trunk, hidden 512, bidirectional; numpy-seeded
+   weights in the Flax layout carried across by the weight bridge, the
+   LSTM's input kernels scaled to the trunk's feature size) on 4 sequences
+   of 20 raw 960x1280 GBRG mosaics through the raw-Bayer device pipeline
+   (K4, then the matmul resize to 256x341): K4 bit-equal to its plain
+   version on these frames; the forward in float32 and bf16 (counts set to
+   0 just before: K4 twice), poses finite of shape (4, 20, 6), bf16 within
+   ``BF16_TOL`` of float32; CUDA-event ms of each forward and of one f32
+   Adam train step (K4 in its preprocess), peak memory; the model on the
+   card against the CPU on 2x4 frames at 64x96 within 1e-4, and one train
+   step within ``TRAIN_TOL``. (b) ``python -m
+   geomapnet_tpu_torch.cli.plot_activations``'s ``main`` on phase 4's scene
+   (MapNet, ResNet-34, ``--frames 50``) writes 50 frames; the saliency of
+   one 2-tuple batch on the card (cuDNN deterministic) against the CPU's,
+   relative to its largest value: within ``SALIENCY_F64_TOL`` in float64
+   (the model converted by ``.double()``) and ``SALIENCY_TOL`` in float32
+   (ill-conditioned at a few pixels; the CPU's two conv backends printed
+   beside it); ms a batch of 8 tuples against the forward's. (c)
+   ``utils.dashboard.make_server`` on port 0 over phase 7's logdir serves
+   its page and exactly its rows. (d) ``cli.eval
+   --output_dir`` on phase 4's scene writes the ``.pkl`` and
+   ``_metrics.json``, and the ``.png`` only where matplotlib imports (else
+   it prints the skip line); ``cli.train --tensorboard`` writes an event
+   file where the tensorboard package is installed, else stops at start
+   with exit 2 naming the package. Each branch taken is printed.
 
 The line before the last is a JSON object with every kernel's launches on
 its main path, error, times and bound; the last line is
@@ -235,6 +263,7 @@ its main path, error, times and bound; the last line is
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import subprocess
@@ -3523,6 +3552,479 @@ def check_grid(tmp: Path, card: str) -> dict:
     return launches
 
 
+VIDLOC_N, VIDLOC_T = 4, 20   # phase 13: sequences x frames of VidLoc
+VIDLOC_HIDDEN = 512
+SALIENCY_FRAMES = 50
+# The saliency on the card (cuDNN deterministic, no TF32) against the CPU
+# on one batch, relative to the batch's largest saliency value. In float64
+# (the model converted by .double()) the two compute the same function to
+# rounding: SALIENCY_F64_TOL. In float32, the path plot_activations runs,
+# the input gradient of this random ResNet-34 is ill-conditioned at a few
+# pixels: where a max-pool window's largest inputs nearly tie or a ReLU's
+# input is near zero, the summation order flips which input takes the
+# gradient, so float32 is held to SALIENCY_TOL at the worst pixel, and the
+# phase prints the CPU's own two conv backends (oneDNN, native) against
+# each other beside the card's gap as the yardstick.
+SALIENCY_F64_TOL = 1e-9
+SALIENCY_TOL = 1e-1
+
+
+def seeded_vidloc_variables(model) -> dict:
+    """Numpy-seeded variables in the Flax layout of the VidLoc ``model``
+    (``state_dict_to_variables`` gives the tree: the trunk, the
+    ``lstm_fwd`` / ``lstm_bwd`` cells, ``fc_pose``): He-scaled kernels,
+    biases around 0, BatchNorm scale and running variance in [0.5, 1.5]."""
+    from geomapnet_tpu_torch.models.flax_import import state_dict_to_variables
+
+    rng = np.random.RandomState(SEED + 13)
+
+    def fill(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = fill(v)
+            elif k == "kernel":
+                fan_in = int(np.prod(v.shape[:-1]))
+                out[k] = rng.randn(*v.shape) * np.sqrt(2.0 / fan_in)
+            elif k in ("scale", "var"):
+                out[k] = rng.uniform(0.5, 1.5, v.shape)
+            else:
+                out[k] = rng.randn(*v.shape) * 0.1
+            if not isinstance(v, dict):
+                out[k] = np.asarray(out[k], np.float32)
+        return out
+
+    return fill(state_dict_to_variables(model.state_dict()))
+
+
+def scale_lstm_inputs(variables: dict, feats: torch.Tensor) -> dict:
+    """``variables`` with the LSTM's input kernels rescaled to a standard
+    deviation of 1 / (sqrt(F) * rms(feats)): the gates' pre-activations
+    then have about unit variance on these trunk features, the cell's
+    working range (the random trunk's features are far from unit size)."""
+    rms = float(feats.float().pow(2).mean().sqrt())
+    f = feats.shape[-1]
+    out = {**variables, "params": dict(variables["params"])}
+    for cell in ("lstm_fwd", "lstm_bwd"):
+        gates = dict(out["params"][cell])
+        for g in "ifgo":
+            k = gates[f"i{g}"]["kernel"]
+            gates[f"i{g}"] = {"kernel": (k / k.std() / (np.sqrt(f) * rms)
+                                         ).astype(np.float32)}
+        out["params"][cell] = gates
+    return out
+
+
+def check_vidloc(card: str) -> dict:
+    """Phase 13 (a): VidLoc at full width (ResNet-34 trunk, hidden 512,
+    bidirectional) on 4 sequences of 20 raw 960x1280 GBRG mosaics through
+    the raw-Bayer device pipeline (K4, the matmul resize to 256x341), in
+    float32 and bf16, the weights numpy-seeded in the Flax layout and
+    carried across by the weight bridge; K4 against its plain version on
+    these frames; the model and one train step on the card against the
+    CPU on a small input. Returns K4's launches in the main path."""
+    from geomapnet_tpu_torch.cli import builders
+    from geomapnet_tpu_torch.losses.criterion import PoseNetCriterion
+    from geomapnet_tpu_torch.models import VidLoc, resnet34
+    from geomapnet_tpu_torch.models.flax_import import variables_to_state_dict
+    from geomapnet_tpu_torch.ops import cuda_image
+    from geomapnet_tpu_torch.train.optim import make_optimizer
+    from geomapnet_tpu_torch.train.state import make_train_step
+
+    t0 = time.time()
+    n, t = VIDLOC_N, VIDLOC_T
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    raw = torch.randint(0, 256, (n, t, 960, 1280), dtype=torch.uint8,
+                        device="cuda", generator=gen)
+    pipes = {dt: builders.build_raw_device_preprocess(
+        "loop", str(ROOT / "data"), dtype=dt)
+        for dt in (torch.float32, torch.bfloat16)}
+
+    # K4 on these frames against its plain version (not counted below)
+    stats = np.loadtxt(ROOT / "data" / "RobotCar" / "loop" / "stats.txt")
+    from geomapnet_tpu_torch.data.transforms import std_from_stats
+
+    mean, std = (tuple(float(v) for v in a) for a in std_from_stats(stats))
+    flat = raw.reshape(n * t, 960, 1280)
+    k4 = cuda_image.demosaic_half_normalize(flat, mean, std,
+                                            dtype=torch.float32, planar=True)
+    plain = cuda_image.demosaic_half_normalize_reference(
+        flat, mean, std, torch.float32, True)
+    if not torch.equal(k4, plain):
+        raise AssertionError("K4 differs from its plain version on the "
+                             "VidLoc frames")
+    print(f"phase 13 K4 on {n * t} mosaics: bit-equal to its plain version")
+    del k4, plain
+
+    model = VidLoc(resnet34(), hidden_size=VIDLOC_HIDDEN)
+    variables = seeded_vidloc_variables(model)
+    model.load_state_dict(variables_to_state_dict(variables))
+    model.cuda().eval()
+    with torch.inference_mode():
+        x32 = pipes[torch.float32](raw)
+        feats = model.feature_extractor(x32.reshape((n * t,) + x32.shape[2:]))
+    variables = scale_lstm_inputs(variables, feats)
+    models = {}
+    for dt in (torch.float32, torch.bfloat16):
+        m = VidLoc(resnet34(dt), hidden_size=VIDLOC_HIDDEN, dtype=dt)
+        m.load_state_dict(variables_to_state_dict(variables))
+        models[dt] = m.to("cuda", memory_format=torch.channels_last).eval()
+    print(f"phase 13 VidLoc (ResNet-34, hidden {VIDLOC_HIDDEN}, "
+          f"bidirectional): weights through the bridge, trunk feature rms "
+          f"{float(feats.pow(2).mean().sqrt()):.4g}; set-up "
+          f"{time.time() - t0:.2f} s")
+    del x32, feats
+
+    # the main path: mosaics -> K4 pipeline -> VidLoc, float32 and bf16
+    cuda_image.launches = 0
+    poses = {}
+    with torch.inference_mode():
+        for dt, m in models.items():
+            poses[dt] = m(pipes[dt](raw)).float().cpu().numpy()
+    launches = cuda_image.launches
+    p32, p16 = poses[torch.float32], poses[torch.bfloat16]
+    for dt, p in poses.items():
+        if p.shape != (n, t, 6) or not np.isfinite(p).all():
+            raise AssertionError(f"VidLoc {dt} poses {p.shape}, finite "
+                                 f"{np.isfinite(p).all()}")
+    rel = float(np.abs(p16 - p32).max() / np.abs(p32).max())
+    print(f"phase 13 VidLoc poses {p32.shape}: bf16 vs f32 {rel} of the "
+          f"largest |pose| {float(np.abs(p32).max())} (bound {BF16_TOL}); "
+          f"K4 launches {launches}")
+    if not 0 < rel <= BF16_TOL or launches != 2:
+        raise AssertionError(f"bf16 off by {rel}, or K4 launched {launches} "
+                             f"times for 2 forwards")
+
+    # timing: the forward on preprocessed frames, and the train step
+    out = {}
+    for dt, m in models.items():
+        with torch.inference_mode():
+            x = pipes[dt](raw)
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: m(x), reps=5, groups=3)
+        out[str(dt).replace("torch.", "")] = ms
+        print(f"phase 13 VidLoc forward {dt}, {n}x{t} frames 256x341: {ms} "
+              f"ms (CUDA events) = {n * t / ms * 1e3:.1f} images/s; peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+              f"({card})")
+        del x
+    m = models[torch.float32]
+    crit = PoseNetCriterion(saq=-3.0, learn_beta=True).cuda()
+    opt = make_optimizer("adam", 1e-4, m, crit, 5e-4)
+    step = make_train_step(m, crit, opt, pipes[torch.float32])
+    y = torch.randn(n, t, 6, device="cuda", generator=gen) * 0.1
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(raw, y), reps=3, groups=3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = float(step(raw, y))
+    print(f"phase 13 VidLoc train step f32 (K4 preprocess, Adam), {n}x{t} "
+          f"frames: {ms} ms (CUDA events) = {n * t / ms * 1e3:.1f} train "
+          f"images/s; peak {peak:.3f} GiB; loss {loss:.4f} ({card})")
+    if not np.isfinite(loss):
+        raise AssertionError("non-finite VidLoc train loss")
+    out.update(step_ms=ms, peak_gib=peak)
+    del models, step, opt, m
+    torch.cuda.empty_cache()
+
+    check_vidloc_card_vs_cpu(variables)
+    print(f"phase 13 (a): {time.time() - t0:.2f} s")
+    return dict(launches=launches, **out)
+
+
+def check_vidloc_card_vs_cpu(variables: dict) -> None:
+    """Phase 13 (a): the same VidLoc on the card and on the CPU, on 2
+    sequences of 4 frames at 64x96: the forward within 1e-4, and one f32
+    Adam train step (an injected dropout mask) within ``TRAIN_TOL``: the
+    loss relative, the gradients of the LSTM, ``fc_pose`` and the
+    criterion and every BatchNorm running statistic of each tensor's
+    max-abs."""
+    from geomapnet_tpu_torch.losses.criterion import PoseNetCriterion
+    from geomapnet_tpu_torch.models import VidLoc, resnet34
+    from geomapnet_tpu_torch.models.flax_import import variables_to_state_dict
+    from geomapnet_tpu_torch.train.optim import make_optimizer
+    from geomapnet_tpu_torch.train.state import make_train_step
+
+    rng = np.random.RandomState(SEED + 14)
+    x = torch.from_numpy(rng.randn(2, 4, 64, 96, 3).astype(np.float32))
+    y = torch.from_numpy((rng.randn(2, 4, 6) * 0.1).astype(np.float32))
+    mask = torch.from_numpy(rng.rand(8, 512) >= 0.5)
+    fwd, res = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = VidLoc(resnet34(), hidden_size=VIDLOC_HIDDEN)
+        m.load_state_dict(variables_to_state_dict(variables))
+        m.to(dev).eval()
+        with torch.inference_mode():
+            fwd[dev] = m(x.to(dev)).cpu().numpy()
+        crit = PoseNetCriterion(saq=-3.0, learn_beta=True).to(dev)
+        opt = make_optimizer("adam", 1e-4, m, crit, 5e-4)
+        step = make_train_step(m, crit, opt)
+        loss = float(step(x.to(dev), y.to(dev), keep_masks=[mask.to(dev)]))
+        grads = {f"crit.{k}": p.grad for k, p in crit.named_parameters()}
+        grads.update({k: p.grad for k, p in m.named_parameters()
+                      if k.startswith(("lstm.", "fc_pose."))})
+        stats = {k: v for k, v in m.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        res[dev] = (loss, {k: v.detach().cpu().double()
+                           for k, v in {**grads, **stats}.items()})
+    gap = float(np.abs(fwd["cuda"] - fwd["cpu"]).max())
+    print(f"phase 13 VidLoc small-input forward, card vs CPU: max abs diff "
+          f"{gap}, scale {float(np.abs(fwd['cpu']).max())}")
+    np.testing.assert_allclose(fwd["cuda"], fwd["cpu"], rtol=1e-4, atol=1e-4)
+    (l_cpu, t_cpu), (l_gpu, t_gpu) = res["cpu"], res["cuda"]
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    worst = max((float((t_gpu[k] - v).abs().max()
+                       / max(float(v.abs().max()), 1e-30)), k)
+                for k, v in t_cpu.items())
+    print(f"phase 13 VidLoc train step, card vs CPU (2x4x64x96, injected "
+          f"dropout): loss {l_gpu} vs {l_cpu}, rel {rel}; largest gradient/"
+          f"BN-statistic gap {worst[0]} of its tensor's max-abs ({worst[1]};"
+          f" {len(t_cpu)} tensors; bound {TRAIN_TOL})")
+    if not (rel <= TRAIN_TOL and worst[0] <= TRAIN_TOL):
+        raise AssertionError("the VidLoc train step on the card differs "
+                             "from the CPU's")
+
+
+def check_saliency(scene_root: Path, npz: Path, tmp: Path,
+                   card: str) -> float:
+    """Phase 13 (b): ``cli.plot_activations`` on phase 4's 7Scenes scene
+    (MapNet, ResNet-34, ``--frames 50``) must write 50 frames; the card's
+    saliency on one 2-tuple batch against the CPU's within
+    ``SALIENCY_TOL`` of its largest value; ms a batch of 8 tuples.
+    Returns that time."""
+    from geomapnet_tpu_torch.cli import builders
+    from geomapnet_tpu_torch.cli import plot_activations as pa
+    from geomapnet_tpu_torch.cli.config import parse_ini
+    from geomapnet_tpu_torch.train.checkpoint import load_weights
+
+    config_file = ROOT / "configs" / "mapnet.ini"
+    t0 = time.time()
+    written = pa.main([
+        "--dataset", "7Scenes", "--scene", "heads", "--model", "mapnet",
+        "--trunk", "resnet34", "--config_file", str(config_file), "--val",
+        "--weights", str(npz), "--frames", str(SALIENCY_FRAMES),
+        "--output_dir", str(tmp / "saliency"),
+        "--data_path", str(scene_root / "deepslam"),
+        "--asset_root", str(scene_root / "assets")])
+    wall = time.time() - t0
+    print(f"phase 13 plot_activations: {len(written)} files "
+          f"({written[0].name} ...) in {wall:.2f} s")
+    # 50 PNG frames, or one video of them where imageio writes one
+    if len(written) != (1 if written[0].suffix == ".mp4"
+                        else SALIENCY_FRAMES):
+        raise AssertionError(f"{len(written)} saliency files written")
+
+    config = parse_ini(config_file)
+    _, val_set = builders.build_datasets(
+        "mapnet", "7Scenes", "heads", str(scene_root / "deepslam" / "7Scenes"),
+        config, asset_root=str(scene_root / "assets"))
+    batch = np.stack([val_set[i][0] for i in range(8)])
+    sal = {}
+    deterministic = torch.backends.cudnn.deterministic
+    mkldnn = torch.backends.mkldnn.enabled
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, dev, dtype, onednn in (
+                ("cpu", "cpu", torch.float32, True),
+                ("cpu_native", "cpu", torch.float32, False),
+                ("card", "cuda", torch.float32, True),
+                ("cpu64", "cpu", torch.float64, True),
+                ("card64", "cuda", torch.float64, True)):
+            torch.backends.mkldnn.enabled = onednn
+            model, _ = builders.build_model("mapnet", config,
+                                            trunk="resnet34", dtype=dtype)
+            load_weights(npz, model)
+            model.to(dev, dtype, memory_format=torch.channels_last)
+            sal[name] = pa.saliency_fn(model)(
+                torch.from_numpy(batch[:2]).to(dev, dtype)).cpu().numpy()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.mkldnn.enabled = mkldnn
+
+    def gap(a, b):
+        d = np.abs(sal[a] - sal[b]) / np.abs(sal[b]).max()
+        return float(d.max()), float((d > 1e-3).mean())
+
+    (rel, share), (rel64, _) = gap("card", "cpu"), gap("card64", "cpu64")
+    print(f"phase 13 saliency on 2 tuples, card vs CPU, relative to the "
+          f"largest value: float64 {rel64} (bound {SALIENCY_F64_TOL}); "
+          f"float32 {rel} at the worst pixel (bound {SALIENCY_TOL}), {share}"
+          f" of the pixels beyond 1e-3; the CPU's native conv backend vs "
+          f"its oneDNN one (float32): {gap('cpu_native', 'cpu')}; the "
+          f"float32 saliency vs float64: card {gap('card', 'cpu64')}, CPU "
+          f"{gap('cpu', 'cpu64')}")
+    if not (sal["card"].shape == (2, 3, 256, 341) and rel <= SALIENCY_TOL
+            and rel64 <= SALIENCY_F64_TOL):
+        raise AssertionError(f"saliency {sal['card'].shape}, off by {rel} "
+                             f"(float32) and {rel64} (float64)")
+    model, _ = builders.build_model("mapnet", config, trunk="resnet34")
+    load_weights(npz, model)
+    model.to("cuda", memory_format=torch.channels_last)
+    fn = pa.saliency_fn(model)
+    x = torch.from_numpy(batch).cuda()
+    ms = cuda_ms(lambda: fn(x), reps=3, groups=3)
+    with torch.inference_mode():
+        fwd = cuda_ms(lambda: model(x), reps=3, groups=3)
+    print(f"phase 13 saliency, a batch of 8 tuples (24 frames 256x341): "
+          f"{ms} ms (CUDA events), {ms / fwd:.2f}x the forward's {fwd} ms "
+          f"({card})")
+    return ms
+
+
+def check_dashboard(logdir: Path) -> None:
+    """Phase 13 (c): the dashboard over a Trainer's logdir serves its page
+    and its rows."""
+    import threading
+    import urllib.request
+
+    from geomapnet_tpu_torch.utils.dashboard import make_server
+
+    rows = [json.loads(ln) for ln in
+            (logdir / "metrics.jsonl").read_text().splitlines()]
+    srv = make_server(logdir.parent, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        page = urllib.request.urlopen(f"{base}/", timeout=30).read().decode()
+        data = json.loads(urllib.request.urlopen(
+            f"{base}/data?exp={logdir.name}", timeout=30).read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    print(f"phase 13 dashboard: page {len(page)} bytes, experiment "
+          f"{data['exp']}, {len(data['rows'])} rows of {len(rows)}")
+    if "Criterion parameters" not in page or data["rows"] != rows \
+            or not rows:
+        raise AssertionError("the dashboard did not serve the logdir's rows")
+
+
+def check_optional_packages(eval_argv: list, tmp: Path) -> dict:
+    """Phase 13 (d): the eval CLI's ``--output_dir`` (the ``.png`` only
+    where matplotlib imports, else the skip line) and ``cli.train
+    --tensorboard`` (an event file where the package is installed, else a
+    refusal at start naming it). Returns the branch each took."""
+    import contextlib
+    import io
+    import os
+
+    from geomapnet_tpu_torch.cli import eval as cli_eval
+    from geomapnet_tpu_torch.cli import train as cli_train
+
+    def has(name):
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            return False
+        return True
+
+    out_dir = tmp / "p13_eval"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_eval.main(eval_argv + ["--output_dir", str(out_dir)])
+    text = buf.getvalue()
+    names = sorted(p.name for p in out_dir.iterdir())
+    stem = "7Scenes_heads_mapnet"
+    want = [f"{stem}.pkl", f"{stem}_metrics.json"]
+    if has("matplotlib"):
+        want = sorted(want + [f"{stem}.png"])
+    elif "png skipped: the trajectory plot needs matplotlib" not in text:
+        raise AssertionError("no skip line for the trajectory plot")
+    if names != want:
+        raise AssertionError(f"--output_dir wrote {names}, expected {want}")
+    branches = {"matplotlib": has("matplotlib")}
+    tensorboard = has("torch.utils.tensorboard")
+    print(f"phase 13 eval --output_dir: {names} (matplotlib "
+          f"{'installed' if has('matplotlib') else 'missing: skip line'})")
+
+    ini = write_train_ini(tmp, ROOT / "configs" / "mapnet.ini", 1, "p13_tb")
+    argv = ["--dataset", "synth", "--model", "mapnet", "--trunk", "resnet18",
+            "--config_file", str(ini), "--tensorboard"]
+    cwd = Path.cwd()
+    os.chdir(tmp)
+    err = io.StringIO()
+    try:
+        if tensorboard:
+            trainer = cli_train.main(argv)
+            events = list((tmp / trainer.logdir / "tb").glob("events.*"))
+            if not events:
+                raise AssertionError("--tensorboard wrote no event file")
+            print(f"phase 13 train --tensorboard: {events[0].name}")
+        else:
+            with contextlib.redirect_stderr(err):
+                try:
+                    cli_train.main(argv)
+                except SystemExit as e:
+                    code = e.code
+                else:
+                    raise AssertionError("--tensorboard ran without the "
+                                         "tensorboard package")
+            message = err.getvalue().strip().splitlines()[-1]
+            print(f"phase 13 train --tensorboard without the package: exit "
+                  f"{code}: {message}")
+            if code != 2 or "needs the tensorboard package" not in message:
+                raise AssertionError("--tensorboard did not name the package")
+    finally:
+        os.chdir(cwd)
+    branches["tensorboard"] = tensorboard
+    return branches
+
+
+def check_phase13(scene_root: Path, eval_argv: list, npz: Path,
+                  logdir: Path, tmp: Path, card: str) -> dict:
+    """Phase 13: VidLoc (a), saliency (b), the dashboard (c) and the
+    optional packages (d). Returns (a)'s numbers (K4's launches among
+    them) and (b)'s ms a batch."""
+    t0 = time.time()
+    vid = check_vidloc(card)
+    vid["saliency_ms"] = check_saliency(scene_root, npz, tmp, card)
+    check_dashboard(logdir)
+    branches = check_optional_packages(eval_argv, tmp)
+    print(f"phase 13: {time.time() - t0:.2f} s; VidLoc forward ms "
+          f"f32 {vid['float32']} bf16 {vid['bfloat16']}, step "
+          f"{vid['step_ms']} ms, peak {vid['peak_gib']:.3f} GiB; saliency "
+          f"{vid['saliency_ms']} ms a batch; packages {branches} ({card})")
+    return vid
+
+
+def phase13_alone(tmp: Path) -> dict:
+    """Phase 13 on its own inputs: a 60-frame 7Scenes scene with seeded
+    MapNet weights, and a one-epoch synthetic training run's logdir."""
+    import os
+
+    from geomapnet_tpu_torch.cli import builders
+    from geomapnet_tpu_torch.cli import train as cli_train
+    from geomapnet_tpu_torch.cli.config import parse_ini
+    from geomapnet_tpu_torch.data.sevenscenes import SevenScenes
+    from geomapnet_tpu_torch.ops import _nvcc, cuda_image
+
+    _nvcc.build(cuda_image.SOURCE)
+    config_file = ROOT / "configs" / "mapnet.ini"
+    config = parse_ini(config_file)
+    root = write_7scenes_scene(tmp / "7scenes", SMALL_SCENE_FRAMES)
+    SevenScenes("heads", str(root / "deepslam" / "7Scenes"), train=True,
+                asset_dir=str(root / "assets" / "7Scenes"))
+    model, _ = builders.build_model("mapnet", config, trunk="resnet34")
+    npz = tmp / "mapnet_resnet34.npz"
+    seeded_flax_npz(model.posenet, npz)
+    argv = ["--dataset", "7Scenes", "--scene", "heads", "--model", "mapnet",
+            "--trunk", "resnet34", "--weights", str(npz),
+            "--config_file", str(config_file),
+            "--data_path", str(root / "deepslam"),
+            "--asset_root", str(root / "assets")]
+    ini = write_train_ini(tmp, config_file, 1, "p13_logs")
+    cwd = Path.cwd()
+    os.chdir(tmp)
+    try:
+        trainer = cli_train.main(["--dataset", "synth", "--model", "mapnet",
+                                  "--trunk", "resnet18",
+                                  "--config_file", str(ini)])
+    finally:
+        os.chdir(cwd)
+    return check_phase13(root, argv, npz, tmp / trainer.logdir, tmp,
+                         card_line())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs only "
@@ -3732,6 +4234,13 @@ def main() -> int:
         p12 = check_grid(tmp, card)
         print(f"phase 12: {time.time() - t0:.2f} s ({card})")
 
+        # phase 13: VidLoc through K4, saliency, the dashboard over phase
+        # 7's logdir, and the optional packages; the eval of (d) on phase
+        # 4's scene's 4-frame train split
+        p13 = check_phase13(
+            p4["root"], [a for a in p4["argv"] if a != "--val"], npz,
+            mapnet_7s.parent, tmp, card)
+
     f32 = kernel["float32"]
     # K4's bound: each mosaic byte read once, each float32 output written
     # once (60x960x1280 uint8 -> 60x3x480x640 float32)
@@ -3743,7 +4252,8 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": launches + cache_k4 + pp_k4 + p10["K4"] + p11["K4"],
+        "launches": (launches + cache_k4 + pp_k4 + p10["K4"] + p11["K4"]
+                     + p13["launches"]),
         "max_abs_err": max(k["max_abs_err"] for k in kernel.values()),
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -3792,5 +4302,14 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--grid"]:      # phase 12 alone, no result line
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
             print(check_grid(Path(d), card_line()))
+        sys.exit(0)
+    if sys.argv[1:] == ["--vidloc"]:    # phase 13 alone, no result line
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device is visible")
+        sys.path.insert(0, str(ROOT))
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+            print(phase13_alone(Path(d)))
         sys.exit(0)
     sys.exit(main())

@@ -16,7 +16,11 @@ serving trunks on the hand-written int8 conv and max-pool kernels
 of :mod:`geomapnet_tpu_torch.geometry`) and eval-time dropout: ``python -m
 geomapnet_tpu_torch.cli.eval ...``; training (``python -m
 geomapnet_tpu_torch.cli.train ...``), and both data-parallel over several
-cards under ``torchrun`` (:mod:`geomapnet_tpu_torch.parallel`).
+cards under ``torchrun`` (:mod:`geomapnet_tpu_torch.parallel`); VidLoc,
+the saliency tool, the plots, the dashboard and the TensorBoard writer.
+That is everything the JAX package does but read its orbax checkpoint
+directories, which are refused with the conversion to an ``.npz`` named
+(:func:`geomapnet_tpu_torch.train.checkpoint.refuse_orbax`).
 
 Importing the package loads no submodule; import what you use.
 """

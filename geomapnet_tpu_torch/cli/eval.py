@@ -78,7 +78,10 @@ Ported so far, with PoseNet, MapNet or MapNet++ weights from a port checkpoint
         --quantize_heads --fuse_requant --batch_size 64 \
         --data_path <root> --asset_root <assets>
 
-The trajectory plot of ``--output_dir`` is not written.
+``--output_dir`` receives the poses (``.pkl``), the metrics
+(``_metrics.json``) and upstream's trajectory figure (``.png``,
+:func:`plot_trajectories`); where matplotlib is not installed the figure is
+skipped with a line saying so, and the poses and metrics are still written.
 """
 
 from __future__ import annotations
@@ -116,7 +119,7 @@ from ..models.quant import (
     quantize_posenet_variables,
 )
 from ..pgo import optimize_poses_batch
-from ..train.checkpoint import load_weights
+from ..train.checkpoint import load_weights, refuse_orbax
 from .builders import (
     TRUNKS,
     build_device_preprocess,
@@ -137,7 +140,7 @@ from .eval_epoch import (
     window_generator,
 )
 
-__all__ = ["evaluate", "main"]
+__all__ = ["evaluate", "main", "plot_trajectories"]
 
 
 class _Single:
@@ -595,6 +598,37 @@ def main(argv=None) -> dict:
     return out
 
 
+def plot_trajectories(pred_poses, targ_poses, dataset_name, path):
+    """Save upstream's 3D (7Scenes) / 2D (RobotCar) trajectory figure
+    (upstream scripts/eval.py:208-231): predicted positions red, ground
+    truth green, each pair joined in blue. matplotlib is imported here."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig = plt.figure()
+    three_d = dataset_name == "7Scenes"
+    ax = fig.add_subplot(111, projection="3d" if three_d else None)
+    plt.subplots_adjust(left=0, bottom=0, right=1, top=1)
+    ss = max(1, len(pred_poses) // 1000)
+    x = np.vstack((pred_poses[::ss, 0].T, targ_poses[::ss, 0].T))
+    y = np.vstack((pred_poses[::ss, 1].T, targ_poses[::ss, 1].T))
+    if three_d:
+        z = np.vstack((pred_poses[::ss, 2].T, targ_poses[::ss, 2].T))
+        for xx, yy, zz in zip(x.T, y.T, z.T):
+            ax.plot(xx, yy, zs=zz, c="b")
+        ax.scatter(x[0, :], y[0, :], zs=z[0, :], c="r", depthshade=0)
+        ax.scatter(x[1, :], y[1, :], zs=z[1, :], c="g", depthshade=0)
+        ax.view_init(azim=119, elev=13)
+    else:
+        ax.plot(x, y, c="b")
+        ax.scatter(x[0, :], y[0, :], c="r")
+        ax.scatter(x[1, :], y[1, :], c="g")
+    fig.savefig(path)
+    plt.close(fig)
+
+
 def _main(argv=None) -> dict:
     parser = argparse.ArgumentParser(
         description="Evaluation script for PoseNet and MapNet (PyTorch)"
@@ -605,7 +639,8 @@ def _main(argv=None) -> dict:
     parser.add_argument(
         "--weights", type=str, required=True,
         help="a port checkpoint (epoch_*.pth.tar), an upstream .pth.tar, or "
-        "Flax variables as an .npz (save_npz format)")
+        "Flax variables as an .npz (save_npz format); a JAX orbax directory "
+        "is refused with the conversion to that .npz")
     parser.add_argument("--model", required=True,
                         choices=("posenet", "mapnet", "mapnet++"))
     parser.add_argument("--trunk", default="resnet34",
@@ -694,6 +729,10 @@ def _main(argv=None) -> dict:
     args = parser.parse_args(argv)
     if args.raw_bayer and args.dataset != "RobotCar":
         parser.error("--raw_bayer requires --dataset RobotCar")
+    try:
+        refuse_orbax(args.weights)
+    except ValueError as e:
+        parser.error(str(e))
     if Path(args.weights).suffix not in (".npz", ".tar", ".pth"):
         parser.error("--weights must be a .pth.tar / .pth checkpoint or an "
                      ".npz of Flax variables")
@@ -818,6 +857,15 @@ def _main(argv=None) -> dict:
         out.mkdir(parents=True, exist_ok=True)
         model_name = args.model + ("_pgo" if args.pose_graph else "")
         name = f"{args.dataset}_{args.scene}_{model_name}"
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            print(f"{out / name}.png skipped: the trajectory plot needs "
+                  f"matplotlib, which is not installed")
+        else:
+            plot_trajectories(results["pred_poses"], results["targ_poses"],
+                              args.dataset, out / f"{name}.png")
+            print(f"{out / name}.png saved")
         with open(out / f"{name}.pkl", "wb") as f:
             pickle.dump({"targ_poses": results["targ_poses"],
                          "pred_poses": results["pred_poses"]}, f)

@@ -19,10 +19,10 @@ subcommands and flags (the reference's scripts/ toolbox):
 - ``reverse_vo_poses`` — reverse the frame ordering of a VO pose file;
 - ``export_model`` — a checkpoint as a serving artifact
   (:mod:`geomapnet_tpu_torch.serving`); ``--platforms`` names the devices
-  it may be loaded on, the first of which traces it.
-
-``plot_vo_poses`` (a matplotlib figure) is not ported yet and is refused,
-naming the ROADMAP.md item that ports it.
+  it may be loaded on, the first of which traces it;
+- ``plot_vo_poses`` — the aligned real (VO / GPS) poses against the ground
+  truth: their errors, and with ``--output`` a matplotlib figure (a
+  machine without matplotlib refuses ``--output`` at once).
 
 Usage: ``python -m geomapnet_tpu_torch.cli.tools <subcommand> [options]``.
 """
@@ -42,12 +42,6 @@ from .config import ExperimentConfig, parse_ini
 
 __all__ = ["main"]
 
-# subcommands of the JAX CLI that the port refuses, and the ROADMAP.md item
-# that ports each
-_UNPORTED = {
-    "plot_vo_poses": "Queue 1, item 18 (plots: matplotlib, which the "
-                     "card's machine lacks)",
-}
 
 
 def calc_pose_stats(args) -> None:
@@ -167,6 +161,59 @@ def align_vo_poses(args) -> None:
     aligned = (s * R @ (o1 - t)).T   # the residual alignment quality
     err = np.linalg.norm(aligned - o2.T, axis=1)
     print(f"{out} written: s={s:.4f}, median residual {np.median(err):.4f}")
+
+
+def plot_vo_poses(args) -> None:
+    """Compare aligned real (VO/GPS) poses against GT; print errors, plot."""
+    from ..data.composite import OnlyPoses
+    from ..geometry.metrics import quaternion_angular_error
+    from ..geometry.rotations import qexp_np
+    from .builders import build_frame_dataset
+
+    config = ExperimentConfig()
+    config.vo_lib = args.vo_lib
+    kwargs = dict(
+        dataset=args.dataset, scene=args.scene, data_path=args.data_path,
+        train=not args.val, config=config, skip_images=True,
+        asset_root=args.asset_root,
+    )
+    real = build_frame_dataset(real=True, vo_lib=args.vo_lib, **kwargs)
+    gt = build_frame_dataset(real=False, **kwargs)
+    op = OnlyPoses(real, gt)
+    real_poses = np.stack([op[i][0] for i in range(len(op))])
+    gt_poses = np.stack([op[i][1] for i in range(len(op))])
+
+    if args.dataset != "synth":
+        stats = np.loadtxt(Path(args.asset_root) / args.dataset / args.scene
+                           / "pose_stats.txt")
+        for p in (real_poses, gt_poses):
+            p[:, :3] = p[:, :3] * stats[1] + stats[0]
+
+    t_err = np.linalg.norm(real_poses[:, :3] - gt_poses[:, :3], axis=1)
+    q_err = quaternion_angular_error(
+        qexp_np(real_poses[:, 3:]), qexp_np(gt_poses[:, 3:])
+    )
+    print(f"Translation error: median {np.median(t_err):.3f} m, "
+          f"mean {np.mean(t_err):.3f} m")
+    print(f"Rotation error: median {np.median(q_err):.3f} deg, "
+          f"mean {np.mean(q_err):.3f} deg")
+
+    if args.output:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig = plt.figure()
+        ax = fig.add_subplot(111, projection="3d")
+        ax.plot(real_poses[:, 0], real_poses[:, 1], real_poses[:, 2],
+                c="r", label="real (VO)")
+        ax.plot(gt_poses[:, 0], gt_poses[:, 1], gt_poses[:, 2],
+                c="g", label="GT")
+        ax.legend()
+        fig.savefig(args.output)
+        plt.close(fig)
+        print(f"{args.output} saved")
 
 
 def process_robotcar_gps(args) -> None:
@@ -355,13 +402,12 @@ def main(argv=None):
     p.add_argument("--val", action="store_true")
     p.set_defaults(fn=align_vo_poses)
 
-    for name, where in _UNPORTED.items():
-        p = sub.add_parser(name, parents=[common],
-                           help=f"not ported yet (ROADMAP.md, {where})")
-        p.add_argument("--vo_lib", default="dso")
-        p.add_argument("--val", action="store_true")
-        p.add_argument("--output", default=None)
-        p.set_defaults(fn=None)
+    p = sub.add_parser("plot_vo_poses", parents=[common])
+    p.add_argument("--vo_lib", default="dso")
+    p.add_argument("--val", action="store_true")
+    p.add_argument("--output", default=None,
+                   help="save the trajectory figure here (needs matplotlib)")
+    p.set_defaults(fn=plot_vo_poses)
 
     p = sub.add_parser("process_robotcar_gps", parents=[common])
     p.add_argument("--seq", required=True)
@@ -411,9 +457,15 @@ def main(argv=None):
     p.set_defaults(fn=export_model)
 
     args = parser.parse_args(argv)
-    if args.cmd in _UNPORTED:
-        parser.error(f"{args.cmd} is not ported yet (ROADMAP.md, "
-                     f"{_UNPORTED[args.cmd]})")
+    if args.cmd == "plot_vo_poses" and args.output:
+        # the user asked for the figure: without matplotlib, stop before
+        # the work rather than after it
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            parser.error("plot_vo_poses --output needs matplotlib, which is "
+                         "not installed (drop --output to print the errors "
+                         "alone)")
     args.fn(args)
 
 

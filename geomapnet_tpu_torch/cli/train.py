@@ -48,8 +48,10 @@ and checkpoints::
 
 ``--device_cache shard`` keeps the frames sharded over the ranks;
 ``--no_mesh`` trains one process alone, and is ignored (as in the JAX
-CLI) when several processes run. Flags of the JAX CLI that the port does
-not run yet are refused, each naming the ROADMAP.md item that ports it.
+CLI) when several processes run. ``--tensorboard`` (or ``visdom = yes`` in
+the config, upstream's live plots) also writes TensorBoard event files of
+the metrics under ``logs/<experiment>/tb``; where the ``tensorboard``
+package is missing the run stops at once with a message that names it.
 """
 
 from __future__ import annotations
@@ -60,8 +62,10 @@ from pathlib import Path
 
 import torch
 
-from ..train.checkpoint import latest_checkpoint, load_weights
+from ..train.checkpoint import latest_checkpoint, load_weights, \
+    refuse_orbax
 from ..train.loop import Trainer
+from ..utils.logger import require_tensorboard
 from .builders import (
     TRUNKS,
     build_criteria,
@@ -75,13 +79,6 @@ from .builders import (
 from .config import parse_ini
 
 __all__ = ["main"]
-
-# flags of the JAX CLI that the port refuses, and the ROADMAP.md item that
-# ports each
-_UNPORTED_FLAGS = {
-    "tensorboard": "Queue 1, item 18 (aux; the card's machine has no "
-                   "tensorboard package)",
-}
 
 
 def main(argv=None) -> Trainer:
@@ -199,24 +196,33 @@ def _main(argv=None) -> Trainer:
         "--grad_accum", type=int, default=1,
         help="gradient-accumulation microbatches per optimizer step: the "
         ".ini batch_size stays the EFFECTIVE batch")
-    for flag, where in _UNPORTED_FLAGS.items():
-        parser.add_argument(f"--{flag}", action="store_true",
-                            help=f"not ported yet (ROADMAP.md, {where})")
+    parser.add_argument(
+        "--tensorboard", action="store_true",
+        help="also write TensorBoard event files next to metrics.jsonl "
+        "(needs the tensorboard package)")
     args = parser.parse_args(argv)
 
-    for flag, where in _UNPORTED_FLAGS.items():
-        if getattr(args, flag):
-            parser.error(f"--{flag} is not ported yet (ROADMAP.md, {where})")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not args.distributed:
         parser.error("the launcher started several processes "
                      f"(WORLD_SIZE={os.environ['WORLD_SIZE']}): pass "
                      "--distributed, or they would train independently")
     if args.raw_bayer and args.dataset != "RobotCar":
         parser.error("--raw_bayer requires --dataset RobotCar")
+    for weights in (args.checkpoint, args.pretrained_npz):
+        if weights:
+            try:
+                refuse_orbax(weights)
+            except ValueError as e:
+                parser.error(str(e))
     config = parse_ini(args.config_file)
-    if config.visdom:
-        parser.error("visdom = yes (the TensorBoard writer) is not ported yet "
-                     "(ROADMAP.md, Queue 1, item 18); set visdom = no")
+    # `visdom = yes` in upstream's .ini files maps to the TensorBoard
+    # writer, the live-plot equivalent here
+    tensorboard = args.tensorboard or config.visdom
+    if tensorboard:
+        try:
+            require_tensorboard()
+        except ImportError as e:
+            parser.error(str(e))
     if args.distributed:
         from ..parallel import initialize_distributed, local_device
 
@@ -276,6 +282,7 @@ def _main(argv=None) -> Trainer:
         device_cache=args.device_cache,
         steps_per_launch=args.steps_per_launch,
         ingest_overlap=args.ingest_overlap,
+        tensorboard=tensorboard,
     )
 
     if args.pretrained_npz and checkpoint is not None:

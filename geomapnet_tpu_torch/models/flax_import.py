@@ -11,6 +11,17 @@ PoseNet`, whose submodules carry the Flax names:
 - BatchNorm ``scale`` / ``bias`` / ``mean`` / ``var`` -> ``weight`` /
   ``bias`` / ``running_mean`` / ``running_var`` (plus a zero
   ``num_batches_tracked``, which inference never reads).
+
+A VidLoc-rooted tree (:class:`geomapnet_tpu_torch.models.vidloc.VidLoc`)
+carries the same trunk, a ``fc_pose`` Dense and the two
+``OptimizedLSTMCell``s ``lstm_fwd`` / ``lstm_bwd``; those become the
+``lstm`` ``nn.LSTM``'s layer-0 tensors, gates stacked ``[i, f, g, o]``:
+``weight_ih_l0`` rows from the ``i{g}`` kernels, ``weight_hh_l0`` rows from
+the ``h{g}`` kernels, ``bias_ih_l0`` from the ``h{g}`` biases and a zero
+``bias_hh_l0`` (``lstm_bwd``: the same tensors with the ``_reverse``
+suffix). The way back is :func:`~geomapnet_tpu_torch.models.torch_import.
+convert_lstm_weights`, which adds the two biases, so a Flax -> torch ->
+Flax round trip is exact.
 """
 
 from __future__ import annotations
@@ -20,9 +31,29 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .torch_import import convert_lstm_weights
+
 __all__ = ["variables_to_state_dict", "state_dict_to_variables", "load_npz"]
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
+# VidLoc's LSTM cells and the suffix of their nn.LSTM direction
+_LSTM_CELLS = {"lstm_fwd": "", "lstm_bwd": "_reverse"}
+_GATES = ("i", "f", "g", "o")
+
+
+def _lstm_tensors(cell: Mapping, sfx: str) -> dict[str, np.ndarray]:
+    """An ``OptimizedLSTMCell``'s params -> one direction of ``nn.LSTM``'s
+    layer 0 (the inverse of :func:`convert_lstm_weights`)."""
+    def stack(side, leaf):
+        return np.concatenate([
+            np.asarray(cell[f"{side}{g}"][leaf]).T if leaf == "kernel"
+            else np.asarray(cell[f"{side}{g}"][leaf]) for g in _GATES])
+
+    bias = stack("h", "bias")
+    return {f"lstm.weight_ih_l0{sfx}": stack("i", "kernel"),
+            f"lstm.weight_hh_l0{sfx}": stack("h", "kernel"),
+            f"lstm.bias_ih_l0{sfx}": bias,
+            f"lstm.bias_hh_l0{sfx}": np.zeros_like(bias)}
 
 
 def _leaves(tree: Mapping, prefix: tuple = ()):
@@ -34,9 +65,15 @@ def _leaves(tree: Mapping, prefix: tuple = ()):
 
 
 def variables_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
-    """PoseNet-rooted Flax variables -> the port's PoseNet ``state_dict``."""
+    """PoseNet- or VidLoc-rooted Flax variables -> the port's PoseNet or
+    VidLoc ``state_dict``."""
     sd: dict[str, torch.Tensor] = {}
-    for path, arr in _leaves(variables["params"]):
+    params = dict(variables["params"])
+    for cell, sfx in _LSTM_CELLS.items():
+        if cell in params:
+            for key, arr in _lstm_tensors(params.pop(cell), sfx).items():
+                sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    for path, arr in _leaves(params):
         mod, leaf = ".".join(path[:-1]), path[-1]
         if leaf == "kernel":
             if arr.ndim == 4:      # conv HWIO -> OIHW
@@ -73,13 +110,18 @@ def state_dict_to_variables(sd: Mapping[str, torch.Tensor]) -> dict:
     ``state_dict`` -> PoseNet-rooted ``{"params", "batch_stats"}`` numpy
     tree in the Flax layout, the input of the serving trees
     (:func:`geomapnet_tpu_torch.models.quant.quantize_posenet_variables`).
-    Transposes only, so every value is carried exactly."""
+    Transposes only, so every value is carried exactly. VidLoc's ``lstm``
+    tensors become its two cells through :func:`convert_lstm_weights`."""
     out: dict = {"params": {}, "batch_stats": {}}
+    lstm = {}
     for key, t in sd.items():
         *mod, leaf = key.split(".")
         if leaf == "num_batches_tracked":
             continue
         arr = t.detach().to("cpu", torch.float32).numpy()
+        if mod == ["lstm"]:
+            lstm[leaf] = arr
+            continue
         if leaf in _FROM_STATS:
             coll, name = "batch_stats", _FROM_STATS[leaf]
         elif leaf == "weight" and arr.ndim == 4:   # conv OIHW -> HWIO
@@ -96,6 +138,12 @@ def state_dict_to_variables(sd: Mapping[str, torch.Tensor]) -> dict:
         for p in mod:
             node = node.setdefault(p, {})
         node[name] = np.ascontiguousarray(arr)
+    for cell, sfx in _LSTM_CELLS.items():
+        if f"weight_ih_l0{sfx}" in lstm:
+            out["params"][cell] = {
+                gate: {k: np.ascontiguousarray(v) for k, v in leaves.items()}
+                for gate, leaves in convert_lstm_weights(
+                    lstm, reverse=bool(sfx)).items()}
     return out
 
 

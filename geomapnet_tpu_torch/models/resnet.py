@@ -233,7 +233,9 @@ def sync_batch_norm(model: nn.Module, mesh) -> nn.Module:
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) that reads and writes
     float32 whatever its input's dtype, as the Flax trunk's
-    ``BatchNorm(dtype=float32, momentum=0.9)``. With ``bf16_backward`` its
+    ``BatchNorm(dtype=float32, momentum=0.9)`` (float64 stays float64: a
+    model built with ``dtype=torch.float64`` and converted by ``.double()``
+    is a float64 reference of the float32 one). With ``bf16_backward`` its
     train-mode backward is :class:`BatchNormBf16Backward`'s; with a
     ``sync_mesh`` (:func:`sync_batch_norm`) train mode normalizes over the
     group's global batch."""
@@ -244,7 +246,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.sync_mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
+        x = x if x.dtype == torch.float64 else x.float()
         if not self.training and self.running_mean.requires_grad:
             # statistics that require grad (a functional call on packed
             # pipeline weights): F.batch_norm refuses them, so normalize as
@@ -302,7 +304,7 @@ class BasicBlock(nn.Module):
         y = self.bn2(self.conv2(y))
         if self.downsample_conv is not None:
             identity = self.downsample_bn(self.downsample_conv(x))
-        return self.relu(y + identity.float())
+        return self.relu(y + identity.to(y.dtype))
 
 
 class Bottleneck(nn.Module):
@@ -336,7 +338,7 @@ class Bottleneck(nn.Module):
         y = self.bn3(self.conv3(y))
         if self.downsample_conv is not None:
             identity = self.downsample_bn(self.downsample_conv(x))
-        return self.relu(y + identity.float())
+        return self.relu(y + identity.to(y.dtype))
 
 
 class ResNet(nn.Module):

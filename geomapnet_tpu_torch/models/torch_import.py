@@ -10,6 +10,8 @@ pins each copy to its original:
   ``model_state_dict``) onto PoseNet-rooted Flax ``{"params",
   "batch_stats"}`` trees, handling the ``mapnet.`` / ``feature_extractor.``
   prefixes, the OIHW -> HWIO conv transposition and BatchNorm naming;
+- :func:`convert_lstm_weights` maps one direction of a torch ``nn.LSTM``
+  layer onto a Flax ``OptimizedLSTMCell``'s params (VidLoc's recurrence);
 - :func:`load_torch_checkpoint` reads a ``.pth``/``.pth.tar`` file and
   converts it;
 - :func:`save_npz` / :func:`load_npz` store variables as a flat npz;
@@ -32,6 +34,7 @@ import torch
 
 __all__ = [
     "convert_state_dict",
+    "convert_lstm_weights",
     "load_torch_checkpoint",
     "merge_variables",
     "save_npz",
@@ -148,6 +151,37 @@ def convert_state_dict(
             node = node.setdefault(p, {})
         node[leaf] = arr
     return out
+
+
+def convert_lstm_weights(
+    state_dict: Mapping[str, Any], layer: int = 0, reverse: bool = False,
+) -> dict:
+    """One direction of a torch ``nn.LSTM`` layer -> flax LSTMCell params.
+
+    torch stacks the four gates ``[i, f, g, o]`` into ``weight_ih_l{k}``
+    (4H, I) / ``weight_hh_l{k}`` (4H, H) with two bias vectors; flax's
+    ``(Optimized)LSTMCell`` keeps per-gate Dense blocks — input-side kernels
+    ``i{g}`` (I, H) without bias and hidden-side ``h{g}`` (H, H) carrying the
+    single combined bias. Gate formulas are identical, so the mapping is a
+    pure re-layout (validated against a real torch forward in
+    tests/test_lstm_golden.py). Use as the params of ``nn.RNN(cell)``:
+    ``{"cell": convert_lstm_weights(...)}``.
+    """
+    sfx = f"_l{layer}" + ("_reverse" if reverse else "")
+
+    def get(name):
+        v = state_dict[f"{name}{sfx}"]
+        return np.asarray(getattr(v, "numpy", lambda: v)())
+
+    w_ih, w_hh = get("weight_ih"), get("weight_hh")
+    bias = get("bias_ih") + get("bias_hh")
+    hidden = w_hh.shape[1]
+    cell: dict[str, dict] = {}
+    for k, gate in enumerate(("i", "f", "g", "o")):
+        rows = slice(k * hidden, (k + 1) * hidden)
+        cell[f"i{gate}"] = {"kernel": w_ih[rows].T}
+        cell[f"h{gate}"] = {"kernel": w_hh[rows].T, "bias": bias[rows]}
+    return cell
 
 
 def load_torch_checkpoint(path: str) -> dict[str, dict]:

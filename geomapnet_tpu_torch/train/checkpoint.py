@@ -2,8 +2,8 @@
 loading from the port's checkpoints, upstream ``.pth.tar`` files,
 torchvision trunks and Flax ``.npz`` files.
 
-The PyTorch counterpart of :mod:`geomapnet_tpu.train.checkpoint` (whose
-orbax directories are not read here). A checkpoint is
+The PyTorch counterpart of :mod:`geomapnet_tpu.train.checkpoint`. A
+checkpoint is
 ``logdir/epoch_{epoch:03d}.pth.tar`` in upstream's layout
 (common/train.py:161-204): ``{epoch, model_state_dict, optim_state_dict,
 criterion_state_dict}``, plus ``step`` (the optimizer's update count), with
@@ -11,6 +11,11 @@ the port's own parameter names. MapNet's names are PoseNet's under a
 ``posenet.`` prefix; :func:`adapt_state_dict` re-nests a state dict across
 that boundary as the JAX package's ``adapt_model_params`` does for its
 trees (:90-107).
+
+The JAX package's orbax checkpoint directories (``epoch_NNN``) are refused
+by design: this package imports no orbax. Every reader here raises the
+same error for a directory, naming the conversion into the Flax ``.npz``
+that ``--weights`` reads (:data:`ORBAX_CONVERSION`).
 """
 
 from __future__ import annotations
@@ -35,9 +40,23 @@ __all__ = [
     "adapt_state_dict",
     "load_model_params",
     "load_weights",
+    "refuse_orbax",
+    "ORBAX_CONVERSION",
 ]
 
 _PREFIX = "posenet."
+
+# how a JAX orbax checkpoint becomes the .npz that load_weights reads
+ORBAX_CONVERSION = (
+    "{path} is a directory: an orbax checkpoint of the JAX package "
+    "(geomapnet_tpu's train/checkpoint.py writes epoch_NNN directories), "
+    "which this package does not read (it imports no orbax). Convert it "
+    "with the JAX package into the Flax .npz that --weights reads: "
+    "`epoch, state = geomapnet_tpu.train.checkpoint.restore_checkpoint("
+    "path, state)` with `state` a TrainState of the same model "
+    "(geomapnet_tpu.train.state.create_train_state), then "
+    "`geomapnet_tpu.models.save_npz('weights.npz', {{'params': "
+    "state.params['model'], 'batch_stats': state.batch_stats}})`")
 
 
 def save_checkpoint(logdir: str | Path, epoch: int, model: nn.Module,
@@ -66,7 +85,15 @@ def latest_checkpoint(logdir: str | Path) -> Path | None:
     return paths[-1] if paths else None
 
 
+def refuse_orbax(path: str | Path) -> None:
+    """Raise a ``ValueError`` naming the conversion (:data:`ORBAX_CONVERSION`)
+    when ``path`` is a directory, which an orbax checkpoint is."""
+    if Path(path).is_dir():
+        raise ValueError(ORBAX_CONVERSION.format(path=path))
+
+
 def _read(path: str | Path) -> dict:
+    refuse_orbax(path)
     return torch.load(path, map_location="cpu", weights_only=False)
 
 
@@ -121,14 +148,17 @@ def load_weights(path: str | Path, model: nn.Module) -> str:
     - an upstream PoseNet/MapNet ``.pth.tar`` or a torchvision trunk state
       dict, converted and merged (a trunk-only import leaves the heads as
       they are);
-    - a Flax ``.npz`` (``geomapnet_tpu.models.save_npz``), merged the same
-      way.
+    - a Flax ``.npz`` (``geomapnet_tpu.models.save_npz``) of PoseNet- or
+      MapNet-rooted variables, merged the same way.
 
-    Returns which of the three it was ("port", "torch" or "npz").
+    Returns which of the three it was ("port", "torch" or "npz"). An orbax
+    directory raises the conversion's message (:func:`refuse_orbax`).
     """
     posenet = getattr(model, "posenet", model)
     if Path(path).suffix == ".npz":
         imported, kind = load_npz(str(path)), "npz"
+        if set(imported.get("params", {})) == {"posenet"}:   # MapNet-rooted
+            imported = {k: v["posenet"] for k, v in imported.items()}
     else:
         ckpt = _read(path)
         state = ckpt.get("model_state_dict", ckpt) \

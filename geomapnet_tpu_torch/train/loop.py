@@ -260,6 +260,9 @@ class Trainer:
         ``torch.distributed`` world once it is initialized)
     :param use_mesh: False trains this process alone; as in the JAX
         Trainer, a multi-process run always uses the group
+    :param tensorboard: rank 0 also writes TensorBoard event files of the
+        metrics under ``<logdir>/tb`` (:class:`~geomapnet_tpu_torch.utils.
+        logger.MetricsWriter`)
     """
 
     def __init__(
@@ -284,6 +287,7 @@ class Trainer:
         ingest_overlap: bool = False,
         mesh=None,
         use_mesh: bool = True,
+        tensorboard: bool = False,
     ):
         self.device = torch.device(device)
         # the data-parallel group: each rank loads 1/W of every global
@@ -311,7 +315,8 @@ class Trainer:
         self.tee = (Tee(self.logdir / "log.txt").install() if self.is_main
                     else None)
         self.metrics = MetricsWriter(self.logdir / "metrics.jsonl",
-                                     enabled=self.is_main)
+                                     enabled=self.is_main,
+                                     tensorboard=tensorboard)
 
         print("---------------------------------------")
         print(f"Experiment: {experiment}")

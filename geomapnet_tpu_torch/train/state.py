@@ -145,7 +145,11 @@ class TrainStep:
         self.remat = remat
         posenet = getattr(model, "posenet", model)
         self.droprate = float(getattr(posenet, "droprate", 0.0))
-        self.feat_dim = posenet.fc_feat.out_features
+        # the width of the features the dropout masks: PoseNet's fc_feat
+        # output, or VidLoc's trunk features (it has no fc_feat)
+        self.feat_dim = (posenet.fc_feat.out_features
+                         if hasattr(posenet, "fc_feat")
+                         else posenet.feature_extractor.out_features)
         self.gather = gather
         self.mesh = None
         # (first column, full width) of this rank's dropout features under

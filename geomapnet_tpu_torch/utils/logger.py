@@ -2,9 +2,11 @@
 
 Copies of :mod:`geomapnet_tpu.utils.logger` (upstream common/Logger.py plus
 a structured metrics stream in place of upstream's visdom plots);
-tests/test_torch_import_isolation.py pins them to the originals. The JAX
-package's TensorBoard writer is left out: the card's machine has no
-tensorboard package, and ``--tensorboard`` is refused.
+tests/test_torch_import_isolation.py pins them to the originals. The
+TensorBoard writer (``MetricsWriter(tensorboard=True)``) imports
+``torch.utils.tensorboard`` only when asked for, and fails at once, naming
+the ``tensorboard`` package, where that is not installed
+(:func:`require_tensorboard`).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import sys
 import time
 from pathlib import Path
 
-__all__ = ["Tee", "AverageMeter", "MetricsWriter"]
+__all__ = ["Tee", "AverageMeter", "MetricsWriter", "require_tensorboard"]
 
 
 class Tee:
@@ -62,22 +64,45 @@ class AverageMeter:
         self.avg = self.sum / self.count
 
 
+def require_tensorboard():
+    """``torch.utils.tensorboard.SummaryWriter``; raises an ``ImportError``
+    that names the missing ``tensorboard`` package."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        raise ImportError(
+            "TensorBoard logging (--tensorboard, or visdom = yes in the "
+            "config) needs the tensorboard package, which this Python "
+            "lacks: install tensorboard, or drop the option (metrics.jsonl "
+            f"is written either way). ({e})") from e
+    return SummaryWriter
+
+
 class MetricsWriter:
     """Append-only JSONL metrics stream with wall-clock stamps.
 
-    :param enabled: no-op writer when False
+    :param enabled: no-op writer when False (ranks other than 0 of a
+        data-parallel run)
+    :param tensorboard: also emit TensorBoard event files next to the JSONL
+        (scalars only; numeric fields are tagged ``<kind>/<field>`` and keyed
+        by ``step`` when present, else by write count)
     """
 
-    def __init__(self, path: str | Path, enabled: bool = True):
+    def __init__(self, path: str | Path, enabled: bool = True,
+                 tensorboard: bool = False):
         self.enabled = enabled
         self.path = Path(path)
         self._f = None
+        self._tb = None
         self._n = 0
         self._t0 = time.time()
         if not enabled:
             return
         self.path.parent.mkdir(parents=True, exist_ok=True)
         self._f = open(self.path, "a", buffering=1)
+        if tensorboard:
+            self._tb = require_tensorboard()(
+                log_dir=str(self.path.parent / "tb"))
 
     def write(self, **fields) -> None:
         if not self.enabled:
@@ -85,7 +110,17 @@ class MetricsWriter:
         fields.setdefault("t", round(time.time() - self._t0, 3))
         self._f.write(json.dumps(fields) + "\n")
         self._n += 1
+        if self._tb is not None:
+            kind = fields.get("kind", "metrics")
+            step = int(fields.get("step", self._n))
+            for k, v in fields.items():
+                if k in ("kind", "step", "t"):
+                    continue
+                if isinstance(v, (int, float)):
+                    self._tb.add_scalar(f"{kind}/{k}", v, step)
 
     def close(self) -> None:
         if self._f is not None:
             self._f.close()
+        if self._tb is not None:
+            self._tb.close()

@@ -97,16 +97,21 @@ def test_new_modules_are_covered():
               "data.composite", "native", "native.build", "serving",
               "ops.library", "geometry.align", "cli.tools", "parallel",
               "parallel.mesh", "parallel.multihost", "parallel.tensor",
-              "parallel.pipeline", "dryrun"):
+              "parallel.pipeline", "dryrun", "models.vidloc",
+              "cli.plot_activations", "utils.vis", "utils.dashboard",
+              "cli.dashboard"):
         assert f"geomapnet_tpu_torch.{m}" in mods, m
 
 
 @pytest.mark.parametrize("module", ("parallel.tensor", "parallel.pipeline",
-                                    "dryrun"))
+                                    "dryrun", "models.vidloc",
+                                    "cli.plot_activations", "utils.vis",
+                                    "utils.dashboard", "cli.dashboard"))
 def test_grid_modules_import_neither_jax_nor_the_jax_package(module):
-    """Tensor parallelism, the pipeline and the dry run import in a fresh
-    interpreter where the JAX stack and ``geomapnet_tpu`` are unimportable,
-    load neither, and name neither in an import statement."""
+    """Tensor parallelism, the pipeline, the dry run, VidLoc, the saliency
+    tool, the plots and the dashboard import in a fresh interpreter where
+    the JAX stack and ``geomapnet_tpu`` are unimportable, load neither, and
+    name neither in an import statement."""
     blocked = BLOCKED + ("geomapnet_tpu",)
     code = (
         "import sys\n"
@@ -730,6 +735,66 @@ def test_torch_import_checkpoint_npz_and_merge_copies(tmp_path):
             mod.merge_variables(base, wrong)
         with pytest.raises(KeyError, match="not in model"):
             mod.merge_variables(base, unknown)
+
+
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_convert_lstm_weights_copy(bidirectional):
+    """``convert_lstm_weights`` maps upstream's LSTM tensors (the golden
+    tests' weights) as the original, each direction."""
+    import geomapnet_tpu.models.torch_import as jti
+    from geomapnet_tpu_torch.models import torch_import as pti
+    from test_lstm_golden import _torch_named_weights
+
+    sd = _torch_named_weights(bidirectional)
+    for reverse in (False, True) if bidirectional else (False,):
+        _tree_equal(pti.convert_lstm_weights(sd, reverse=reverse),
+                    jti.convert_lstm_weights(sd, reverse=reverse))
+
+
+@pytest.mark.parametrize("nrow,normalize", [(8, True), (2, False)])
+def test_make_grid_copy(nrow, normalize):
+    from geomapnet_tpu.utils import vis as jax_vis
+    from geomapnet_tpu_torch.utils import vis
+
+    images = np.random.RandomState(0).rand(5, 6, 7, 3).astype(np.float32)
+    got = vis.make_grid(images, nrow=nrow, normalize=normalize)
+    want = jax_vis.make_grid(images, nrow=nrow, normalize=normalize)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_tsne_np_copy():
+    from geomapnet_tpu.utils import vis as jax_vis
+    from geomapnet_tpu_torch.utils import vis
+
+    feats = np.random.RandomState(1).randn(12, 5)
+    got = vis._tsne_np(feats, perplexity=3.0, n_iter=100, seed=2)
+    want = jax_vis._tsne_np(feats, perplexity=3.0, n_iter=100, seed=2)
+    assert got.shape == (12, 2)
+    np.testing.assert_array_equal(got, want)
+
+
+
+
+def test_dashboard_copies(tmp_path):
+    """``read_metrics`` (a torn tail, thinning) and ``list_experiments``
+    (both layouts) as the originals; the served page is the original's."""
+    from geomapnet_tpu.utils import dashboard as jd
+    from geomapnet_tpu_torch.utils import dashboard as pd
+
+    for name in ("a", "b"):
+        path = tmp_path / "logs" / name / "metrics.jsonl"
+        path.parent.mkdir(parents=True)
+        with open(path, "w") as f:
+            for i in range(300):
+                f.write(json.dumps({"kind": "train", "step": i}) + "\n")
+            f.write('{"kind": "val", "step"')
+    path = tmp_path / "logs" / "a" / "metrics.jsonl"
+    for limit in (1000, 50):
+        assert pd.read_metrics(path, limit) == jd.read_metrics(path, limit)
+    for root in (tmp_path / "logs", tmp_path / "logs" / "a", tmp_path):
+        assert pd.list_experiments(root) == jd.list_experiments(root)
+    assert pd.PAGE == jd.PAGE
 
 
 @pytest.mark.parametrize("args", [

@@ -152,3 +152,28 @@ def test_unknown_flax_leaf_raises():
     variables["params"]["fc_xyz"]["gain"] = np.ones(3, np.float32)
     with pytest.raises(KeyError, match="gain"):
         variables_to_state_dict(variables)
+
+
+def test_float64_copy_is_a_float64_reference():
+    """A PoseNet built with ``dtype=torch.float64`` and converted by
+    ``.double()`` computes every conv, BatchNorm and block in float64 (the
+    pose comes out float32, as always) and gives the float32 model's poses
+    within its float32 rounding (1e-5 of their scale); its saliency is the
+    reference that chip_smoke.py holds the card's to."""
+    variables = posenet_variables("resnet18", seed=7)
+    x = torch.from_numpy(_images((2, H, W, 3), seed=8))
+    ref = PoseNet(resnet18(torch.float64), droprate=0.5, feat_dim=FEAT_DIM,
+                  dtype=torch.float64)
+    ref.load_state_dict(variables_to_state_dict(variables))
+    ref = ref.double().eval()
+    dtypes = set()
+    for name, mod in ref.named_modules():
+        if name.startswith("feature_extractor."):
+            mod.register_forward_hook(
+                lambda m, i, o: dtypes.add(o.dtype))
+    with torch.inference_mode():
+        got = ref(x.double())
+        want = port_posenet("resnet18", variables)(x)
+    assert dtypes == {torch.float64} and got.dtype == torch.float32
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale

@@ -7,12 +7,14 @@ they write must be equal: ``pose_stats.txt``, ``stats.txt``, the
 ``*_vo_stats.pkl`` alignments (7Scenes DSO, RobotCar stereo VO),
 ``gps_ins.csv``, the processed RobotCar images and the reversed VO file.
 ``export_model`` writes artifacts that agree through both packages'
-loaders; ``time_imload`` times every stage on the CPU; ``plot_vo_poses`` is
-refused with its ROADMAP item.
+loaders; ``time_imload`` times every stage on the CPU; ``plot_vo_poses``
+prints JAX's errors and writes its figure, and refuses ``--output`` at
+once where matplotlib is missing.
 """
 
 import pickle
 import shutil
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -188,13 +190,41 @@ def test_time_imload_on_the_cpu(tmp_path, capsys):
         assert line in out, out
 
 
-def test_plot_vo_poses_is_refused(capsys):
+def test_plot_vo_poses_is_refused(capsys, monkeypatch, tmp_path):
+    """``--output`` without matplotlib is refused before any work, naming
+    the package (the user asked for that file)."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     with pytest.raises(SystemExit) as exc:
         tools.main(["plot_vo_poses", "--dataset", "7Scenes", "--scene",
-                    "heads"])
+                    "heads", "--data_path", str(tmp_path / "absent"),
+                    "--output", str(tmp_path / "vo.png")])
     assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "item 18" in err
+    assert "needs matplotlib" in capsys.readouterr().err
+    assert not (tmp_path / "vo.png").exists()
+
+
+def test_plot_vo_poses_equals_jax(scene, tmp_path, capsys):
+    """The aligned DSO poses against the ground truth: the port prints the
+    JAX tool's error lines, and both write their figure."""
+    pytest.importorskip("matplotlib")
+    out = {}
+    for name, cli in (("port", tools), ("jax", jax_tools)):
+        root = tmp_path / name
+        shutil.copytree(scene / "assets", root)
+        for argv in (_seven_argv(scene, "calc_pose_stats"),
+                     _seven_argv(scene, "align_vo_poses")
+                     + ["--seq", "1", "--vo_lib", "dso"]):
+            cli.main(argv + ["--asset_root", str(root)])
+        capsys.readouterr()
+        cli.main(_seven_argv(scene, "plot_vo_poses")
+                 + ["--vo_lib", "dso", "--asset_root", str(root),
+                    "--output", str(tmp_path / f"{name}.png")])
+        out[name] = capsys.readouterr().out
+        with Image.open(tmp_path / f"{name}.png") as im:
+            assert im.size[0] > 0
+    lines = [ln for ln in out["port"].splitlines() if "error:" in ln]
+    assert len(lines) == 2
+    assert lines == [ln for ln in out["jax"].splitlines() if "error:" in ln]
 
 
 def _jax_checkpoint(npz, config, tmp_path):

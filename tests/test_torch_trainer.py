@@ -23,6 +23,7 @@
 
 import json
 import os
+import sys
 import warnings
 from pathlib import Path
 
@@ -228,16 +229,24 @@ def resumed_datasets():
             MF(SyntheticScene(n_frames=16, train=False), steps=3, skip=10))
 
 
+# the case keeps the id it had while --tensorboard was refused outright
 @pytest.mark.parametrize("extra,message", [
-    (["--tensorboard"], "item 18"),
+    pytest.param(["--tensorboard"], "needs the tensorboard package",
+                 id="extra0-item 18"),
 ])
-def test_cli_refuses_unported_flags(tmp_path, capsys, extra, message):
+def test_cli_refuses_unported_flags(tmp_path, capsys, monkeypatch, extra,
+                                    message):
+    """A flag whose package this Python lacks stops the run at start, with
+    a message that names the package (``--tensorboard`` without
+    tensorboard; tests/test_torch_aux.py runs it with the package)."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     ini = _synth_ini(tmp_path, 1)
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit) as exc:
         cli_train.main(SYNTH + ["--config_file", str(ini)] + extra)
     assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and message in err
+    assert message in capsys.readouterr().err
+    assert not (tmp_path / "logs").exists()   # nothing ran
 
 
 def test_cli_refuses_a_launch_without_distributed(tmp_path, capsys,
@@ -278,12 +287,17 @@ def test_cli_runs_the_data_parallel_flags_alone(tmp_path, capsys,
 
 
 def test_cli_refuses_visdom_and_needs_a_card(tmp_path, capsys, monkeypatch):
+    """``visdom = yes`` asks for the TensorBoard writer: without the
+    tensorboard package it is refused, naming the package."""
     ini = _synth_ini(tmp_path, 1)
     vis = tmp_path / "vis.ini"
     vis.write_text(ini.read_text().replace("visdom = no", "visdom = yes"))
-    with pytest.raises(SystemExit):
-        cli_train.main(SYNTH + ["--config_file", str(vis)])
-    assert "item 18" in capsys.readouterr().err
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "torch.utils.tensorboard", None)
+        with pytest.raises(SystemExit):
+            cli_train.main(SYNTH + ["--config_file", str(vis)])
+    err = capsys.readouterr().err
+    assert "visdom = yes" in err and "needs the tensorboard package" in err
     # without --device the run goes to the card, and fails without one
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = [a for a in SYNTH if a not in ("--device", "cpu")]
