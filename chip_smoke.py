@@ -1513,25 +1513,12 @@ def write_train_ini(tmp: Path, config_file: Path, n_epochs: int,
     return path
 
 
-def trace_busy_share(trace: Path) -> tuple[float, float]:
-    """(device busy ms, its share of the trace's span) from a
-    ``torch.profiler`` Chrome trace: the kernels, copies and sets of the
-    card, over the span from the first to the last event."""
-    events = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("ph") == "X" and "dur" in e]
-    dev = [e for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"]
-                                                         for e in events)
-    busy = sum(e["dur"] for e in dev)
-    return busy / 1e3, busy / span
-
-
 def check_train_cli_7scenes(tmp: Path, config_file: Path) -> Path:
     """Phase 7 (c): the train CLI on a generated 7Scenes scene, resume, and
     the eval CLI on its checkpoint. Returns the final checkpoint."""
     import os
 
+    from benchmark.core.trace import _read_chrome_trace
     from geomapnet_tpu_torch.cli import eval as cli_eval
     from geomapnet_tpu_torch.cli import train as cli_train
 
@@ -1566,8 +1553,10 @@ def check_train_cli_7scenes(tmp: Path, config_file: Path) -> Path:
         secs = sum(e["secs"] for e in st)
         images = sum(e["images"] for e in st)
         data = sum(e["data_secs"] for e in st)
-        busy_ms, share = trace_busy_share(tmp / "train_profile"
-                                          / "trace.json")
+        # the card's busy share, read as the benchmark's traced run reads
+        # its trace: the union of the kernel, copy and set intervals
+        prof = _read_chrome_trace(str(tmp / "train_profile" / "trace.json"))
+        busy_ms, share = prof.busy_s() * 1e3, 1.0 - prof.idle()
         n_val = sum(r["kind"] == "val" for r in records)
         print(f"train CLI 7Scenes ({card_line()}): wall {wall:.2f} s for 2 "
               f"epochs of {st[0]['steps']} steps ({n_val} validations of "
@@ -1927,18 +1916,16 @@ def steady(trainer, first: int = 1) -> dict:
                 step_ms=secs / sum(e["steps"] for e in st) * 1e3)
 
 
-def profile_epoch(trainer, tmp: Path, name: str) -> float:
-    """The card's busy share of one more epoch under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_epoch(trainer) -> float:
+    """The card's busy share of one more epoch under ``torch.profiler``:
+    the union of its kernel, copy and set intervals over the traced span
+    (the benchmark's traced run)."""
+    from benchmark.core.trace import Tracer
 
     trainer.metrics.enabled = False     # its file closed with the run
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with Tracer(True) as tracer:
         trainer.train_epoch(len(trainer.epoch_stats))
-        torch.cuda.synchronize()
-    trace = tmp / f"{name}_trace.json"
-    prof.export_chrome_trace(str(trace))
-    return trace_busy_share(trace)[1]
+    return 1.0 - tracer.read().idle()
 
 
 def check_cache_training(root: Path, tmp: Path, config_file: Path,
@@ -1973,7 +1960,7 @@ def check_cache_training(root: Path, tmp: Path, config_file: Path,
         r.update(steady(trainer), upload_secs=trainer.upload_secs,
                  steps=steps, val_batches=n_val,
                  graphs=trainer.graph_launches())
-        r["busy_share"] = profile_epoch(trainer, tmp, name)
+        r["busy_share"] = profile_epoch(trainer)
         print(f"phase 8 (b) {name} ({card}): train {r['images_per_s']:.1f} "
               f"images/s ({r['step_ms']:.2f} ms a step) over epochs 1-2, "
               f"loader wait {r['data_share']:.4f} of the train time, card "
@@ -2300,7 +2287,7 @@ def check_mapnetpp_workflow(root: Path, tmp: Path, config_file: Path,
                  frames=int(trainer._train_frames.shape[0]),
                  epoch_secs=[round(e["secs"], 3)
                              for e in trainer.epoch_stats])
-        r["busy_share"] = profile_epoch(trainer, tmp, name)
+        r["busy_share"] = profile_epoch(trainer)
         print(f"phase 9 (b) {name} ({card}): MapNet++ train "
               f"{r['images_per_s']:.1f} images/s (2T = 6 frames an item, "
               f"{r['step_ms']:.2f} ms a step of "

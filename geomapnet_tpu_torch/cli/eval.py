@@ -90,7 +90,6 @@ import argparse
 import json
 import os
 import pickle
-import time
 from pathlib import Path
 
 import numpy as np
@@ -120,6 +119,7 @@ from ..models.quant import (
 )
 from ..pgo import optimize_poses_batch
 from ..train.checkpoint import load_weights, refuse_orbax
+from ..utils.trace import span
 from .builders import (
     TRUNKS,
     build_device_preprocess,
@@ -253,6 +253,13 @@ def evaluate(model: torch.nn.Module, dataset, device: torch.device,
     and runs the S2D stem. Dynamic-scale int8 couples batchmates, so it
     keeps the tuple epoch.
 
+    Each phase of the call runs under a span
+    (:mod:`geomapnet_tpu_torch.utils.trace`: ``eval.tuples``,
+    ``eval.upload``, ``eval.serving_tree``, ``eval.quantize_rows``,
+    ``eval.targets``, ``eval.epoch``, ``eval.pgo``, ``eval.errors``);
+    ``images_per_sec``, ``upload_secs`` and ``pgo_secs`` are read from their
+    seconds.
+
     With a variable-skip MF dataset the loader's get_indices draws and the
     middle-frame scatter's re-draws would differ under the shared RNG, so
     per-index deterministic sampling is forced for the duration of the call
@@ -345,30 +352,31 @@ def _evaluate(
     frame_buf = frame_shape = None
     cache_sharded = False
     upload_secs = 0.0
-    idx_mat = tuple_index_matrix(dataset, is_tuple)
+    with span("eval.tuples"):
+        idx_mat = tuple_index_matrix(dataset, is_tuple)
 
     if use_device_cache:
         frames_src = dataset.dset if is_tuple else dataset
         n_frames = len(frames_src)
-        t_up = time.time()
-        if isinstance(device_cache, torch.Tensor):
-            frame_buf = device_cache
-            # a returned shard has ceil(N/W) rows
-            cache_sharded = (dp is not None and dp.world_size > 1
-                             and frame_buf.shape[0] != n_frames)
-        elif device_cache == "shard":
-            frame_buf = upload_frames_sharded(frames_src, dp,
-                                              num_workers=num_workers)
-            cache_sharded = True
-        elif dp is not None and dp.world_size > 1:
-            frame_buf = upload_frames_global(frames_src, dp,
-                                             num_workers=num_workers)
-        else:
-            frame_buf = upload_frames(frames_src, device,
-                                      num_workers=num_workers)
-        if frame_buf.device.type == "cuda":
-            torch.cuda.synchronize(frame_buf.device)
-        upload_secs = time.time() - t_up
+        with span("eval.upload") as upload:
+            if isinstance(device_cache, torch.Tensor):
+                frame_buf = device_cache
+                # a returned shard has ceil(N/W) rows
+                cache_sharded = (dp is not None and dp.world_size > 1
+                                 and frame_buf.shape[0] != n_frames)
+            elif device_cache == "shard":
+                frame_buf = upload_frames_sharded(frames_src, dp,
+                                                  num_workers=num_workers)
+                cache_sharded = True
+            elif dp is not None and dp.world_size > 1:
+                frame_buf = upload_frames_global(frames_src, dp,
+                                                 num_workers=num_workers)
+            else:
+                frame_buf = upload_frames(frames_src, device,
+                                          num_workers=num_workers)
+            if frame_buf.device.type == "cuda":
+                torch.cuda.synchronize(frame_buf.device)
+        upload_secs = upload.seconds
     sharded_gather = make_sharded_gather(dp) if cache_sharded else None
     row_cache = (frame_buf is not None and frame_buf.dtype == torch.int8
                  and frame_buf.dim() == 2)
@@ -391,62 +399,68 @@ def _evaluate(
             else:
                 def read(rows):
                     return frame_buf.index_select(0, rows)
-        qtree = _serving_tree(
-            net, quantize, quantize_heads, calib_batches,
-            _calibration_batches(
-                dataset, is_tuple, read, idx_mat, calib_batches, batch_size,
-                preprocess, device, num_workers))
-        # int8 serves in bf16; BN folding keeps the model's own dtype
-        dtype = torch.bfloat16 if quantize else net.fc_feat.compute_dtype
+        with span("eval.serving_tree"):
+            qtree = _serving_tree(
+                net, quantize, quantize_heads, calib_batches,
+                _calibration_batches(
+                    dataset, is_tuple, read, idx_mat, calib_batches,
+                    batch_size, preprocess, device, num_workers))
+            # int8 serves in bf16; BN folding keeps the model's own dtype
+            dtype = torch.bfloat16 if quantize else net.fc_feat.compute_dtype
+            with span("eval.build_net"):
+                # the prequantized row cache (JAX: cli/eval.py:304-365)
+                # runs the S2D stem
+                net = QuantizedPoseNet(
+                    convert_stem_s2d(qtree) if prequant else qtree, dtype,
+                    fused=bool(fuse_requant)).to(device)
         if prequant:
-            # the prequantized row cache (JAX: cli/eval.py:304-365): the
-            # S2D stem over rows made once per scene, inside upload_secs
-            net = QuantizedPoseNet(convert_stem_s2d(qtree), dtype,
-                                   fused=True).to(device)
-            t_up = time.time()
-            if row_cache:
-                # a reused row cache; its frame geometry from one probe
-                frame_shape = s2d_frame_shape(_probe_frames(
-                    frames_src, len(frames_src), float("inf")).shape)
-                if np.prod(frame_shape) != frame_buf.shape[1]:
-                    raise ValueError(
-                        f"the row cache's rows of {frame_buf.shape[1]} "
-                        f"bytes are not the dataset's frames {frame_shape}")
-            else:
-                frame_shape = s2d_frame_shape(tuple(frame_buf.shape[1:]))
-                frame_buf = quantize_rows(frame_buf, net, preprocess)
-                if frame_buf.device.type == "cuda":
-                    torch.cuda.synchronize(frame_buf.device)
-            upload_secs += time.time() - t_up
-        else:
-            net = QuantizedPoseNet(qtree, dtype,
-                                   fused=bool(fuse_requant)).to(device)
+            # the S2D rows, made once per scene, inside upload_secs
+            with span("eval.quantize_rows") as rows:
+                if row_cache:
+                    # a reused row cache; its frame geometry from one probe
+                    frame_shape = s2d_frame_shape(_probe_frames(
+                        frames_src, len(frames_src), float("inf")).shape)
+                    if np.prod(frame_shape) != frame_buf.shape[1]:
+                        raise ValueError(
+                            f"the row cache's rows of {frame_buf.shape[1]} "
+                            f"bytes are not the dataset's frames "
+                            f"{frame_shape}")
+                else:
+                    frame_shape = s2d_frame_shape(tuple(frame_buf.shape[1:]))
+                    frame_buf = quantize_rows(frame_buf, net, preprocess)
+                    if frame_buf.device.type == "cuda":
+                        torch.cuda.synchronize(frame_buf.device)
+            upload_secs += rows.seconds
     # batches run T-FOLDED, (B*T, H, W, C), through the per-frame PoseNet
     # (MapNet is exactly this fold) and fold back to (B, T, 6)
     step = make_step(net, preprocess, steps, dp)
 
     if use_device_cache:
-        if is_tuple:
-            targ = np.stack([dataset._poses_for(ti) for ti in idx_mat])
-        else:
-            tt = getattr(frames_src, "target_transform", None)
-            targ = np.stack([
-                np.asarray(tt(p) if tt is not None else p, np.float32)[None]
-                for p in frames_src.poses])
-        t_start = time.time()
-        plan = plan_epoch(idx_mat, batch_size,
-                          per_frame=is_tuple and not (dynamic_q or stochastic),
-                          dedup_frames=dedup_frames)
-        if progress and (dp is None or dp.rank == 0):
-            print(f"eval: {plan.mode} epoch, {len(plan.windows)} windows of "
-                  f"{plan.window_frames} frames from the device cache"
-                  + (f" over {dp.world_size} ranks" if dp is not None
-                     else ""))
-        outs = run_epoch(plan, frame_buf, step, frame_shape,
-                         dropout_seed=seed if stochastic else None, mesh=dp,
-                         sharded_gather=sharded_gather)
-        output = tuple_outputs(plan, outs.to("cpu", torch.float64).numpy())
-        elapsed = time.time() - t_start
+        with span("eval.targets"):
+            if is_tuple:
+                targ = np.stack([dataset._poses_for(ti) for ti in idx_mat])
+            else:
+                tt = getattr(frames_src, "target_transform", None)
+                targ = np.stack([
+                    np.asarray(tt(p) if tt is not None else p,
+                               np.float32)[None]
+                    for p in frames_src.poses])
+        with span("eval.epoch") as epoch:
+            plan = plan_epoch(
+                idx_mat, batch_size,
+                per_frame=is_tuple and not (dynamic_q or stochastic),
+                dedup_frames=dedup_frames)
+            if progress and (dp is None or dp.rank == 0):
+                print(f"eval: {plan.mode} epoch, {len(plan.windows)} "
+                      f"windows of {plan.window_frames} frames from the "
+                      f"device cache" + (f" over {dp.world_size} ranks"
+                                         if dp is not None else ""))
+            outs = run_epoch(plan, frame_buf, step, frame_shape,
+                             dropout_seed=seed if stochastic else None,
+                             mesh=dp, sharded_gather=sharded_gather)
+            with span("eval.readback"):
+                output = tuple_outputs(
+                    plan, outs.to("cpu", torch.float64).numpy())
         result.update(device_frames=frame_buf, upload_secs=upload_secs,
                       frames_computed=plan.frames_computed,
                       dedup_slice=plan.mode == "slice")
@@ -464,8 +478,7 @@ def _evaluate(
             source = _Rows(source, _rank_rows(len(idx_mat), batch_size, dp))
         loader = Loader(source, local_bs, shuffle=False, drop_last=False,
                         num_workers=num_workers)
-        t_start = time.time()
-        with torch.inference_mode():
+        with span("eval.epoch") as epoch, torch.inference_mode():
             for batch_idx, (imgs, poses, _) in enumerate(loader):
                 if progress and batch_idx % 10 == 0 and (
                         dp is None or dp.rank == 0):
@@ -482,9 +495,9 @@ def _evaluate(
                 targ = gather_windows(targ.to(device).reshape(
                     (len(loader), local_bs) + tuple(targ.shape[1:])), dp)
                 targ = targ.reshape((-1,) + tuple(targ.shape[2:]))
-            output = output.to("cpu", torch.float64).numpy()
-            targ = targ.to("cpu").numpy()
-        elapsed = time.time() - t_start
+            with span("eval.readback"):
+                output = output.to("cpu", torch.float64).numpy()
+                targ = targ.to("cpu").numpy()
     # drop the last batch's pad rows
     S = len(idx_mat)
     output = output[:S]
@@ -500,29 +513,31 @@ def _evaluate(
     if pose_graph:
         # targets carry [steps abs | VOs]; every window in one batched
         # solve on the device (JAX: cli/eval.py:676-691)
-        t_pgo = time.time()
-        vos_log = targ[:, steps:]
-        vos7 = np.concatenate(
-            [vos_log[..., :3], qexp_np(vos_log[..., 3:])], axis=-1)
-        out7 = optimize_poses_batch(
-            torch.from_numpy(out7).to(device, torch.float32),
-            torch.from_numpy(vos7).to(device, torch.float32),
-            fc=fc_vos, **(pgo_weights or {}),
-        ).to("cpu", torch.float64).numpy()
-        result["pgo_secs"] = time.time() - t_pgo
+        with span("eval.pgo") as pgo:
+            vos_log = targ[:, steps:]
+            vos7 = np.concatenate(
+                [vos_log[..., :3], qexp_np(vos_log[..., 3:])], axis=-1)
+            out7 = optimize_poses_batch(
+                torch.from_numpy(out7).to(device, torch.float32),
+                torch.from_numpy(vos7).to(device, torch.float32),
+                fc=fc_vos, **(pgo_weights or {}),
+            ).to("cpu", torch.float64).numpy()
+        result["pgo_secs"] = pgo.seconds
 
-    # un-normalize translations
-    out7[..., :3] = out7[..., :3] * pose_s + pose_m
-    targ7[..., :3] = targ7[..., :3] * pose_s + pose_m
+    with span("eval.errors"):
+        # un-normalize translations
+        out7[..., :3] = out7[..., :3] * pose_s + pose_m
+        targ7[..., :3] = targ7[..., :3] * pose_s + pose_m
 
-    # middle-frame selection into the global arrays
-    pred_poses = np.zeros((L, 7))
-    targ_poses = np.zeros((L, 7))
-    mid = idx_mat[:, steps // 2]
-    pred_poses[mid] = out7[:, steps // 2]
-    targ_poses[mid] = targ7[:, steps // 2]
-    t_err = translation_error(pred_poses[:, :3], targ_poses[:, :3])
-    q_err = quaternion_angular_error(pred_poses[:, 3:], targ_poses[:, 3:])
+        # middle-frame selection into the global arrays
+        pred_poses = np.zeros((L, 7))
+        targ_poses = np.zeros((L, 7))
+        mid = idx_mat[:, steps // 2]
+        pred_poses[mid] = out7[:, steps // 2]
+        targ_poses[mid] = targ7[:, steps // 2]
+        t_err = translation_error(pred_poses[:, :3], targ_poses[:, :3])
+        q_err = quaternion_angular_error(pred_poses[:, 3:],
+                                         targ_poses[:, 3:])
     result.update({
         "pred_poses": pred_poses,
         "targ_poses": targ_poses,
@@ -532,7 +547,7 @@ def _evaluate(
         "mean_t": float(np.mean(t_err)),
         "median_q": float(np.median(q_err)),
         "mean_q": float(np.mean(q_err)),
-        "images_per_sec": S * steps / max(elapsed, 1e-9),
+        "images_per_sec": S * steps / max(epoch.seconds, 1e-9),
     })
     return result
 
@@ -541,14 +556,17 @@ def _serving_tree(posenet, quantize: bool, quantize_heads: bool,
                   calib_batches: int, batches) -> dict:
     """The int8 (calibrated on the iterable ``batches`` when
     ``calib_batches``) or BN-folded tree of ``posenet``'s weights."""
-    variables = state_dict_to_variables(posenet.state_dict())
+    with span("eval.weights_to_host"):
+        variables = state_dict_to_variables(posenet.state_dict())
     stage_sizes = posenet.feature_extractor.stage_sizes
     if not quantize:
         return fold_posenet_variables(variables, stage_sizes)
-    qtree = quantize_posenet_variables(variables, stage_sizes,
-                                       quantize_heads=quantize_heads)
+    with span("eval.quantize_tree"):
+        qtree = quantize_posenet_variables(variables, stage_sizes,
+                                           quantize_heads=quantize_heads)
     if calib_batches:
-        qtree = calibrate_activation_scales(qtree, batches)
+        with span("eval.calibrate"):
+            qtree = calibrate_activation_scales(qtree, batches)
     return qtree
 
 

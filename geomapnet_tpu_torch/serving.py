@@ -45,6 +45,7 @@ from torch import nn
 from torch.export.passes import move_to_device_pass
 
 from .ops import library  # noqa: F401  (registers the kernels' operators)
+from .utils.trace import span
 
 __all__ = ["export_inference", "load_inference", "Inference"]
 
@@ -198,7 +199,7 @@ class Inference:
         self.platforms = platforms
 
     def __call__(self, images: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
+        with span("serve.call"), torch.inference_mode():
             return self.module(images)
 
 

@@ -75,6 +75,7 @@ from ..parallel.multihost import (
     process_count,
 )
 from ..utils.logger import AverageMeter, MetricsWriter, Tee
+from ..utils.trace import span
 from .checkpoint import load_model_params, restore_checkpoint, \
     save_checkpoint
 from .optim import make_optimizer
@@ -231,7 +232,9 @@ class Trainer:
         (else the weights only)
     :param device: where the model trains (a CUDA device, or the CPU)
     :param profile_dir: ``torch.profiler`` trace of the first
-        ``PROFILE_BATCHES`` batches, written there as a Chrome trace
+        ``PROFILE_BATCHES`` batches, written there as a Chrome trace (with
+        the loop's spans, :mod:`geomapnet_tpu_torch.utils.trace`:
+        ``train.data``, ``train.step``, ``train.emit``, ...)
     :param debug_nans: anomaly detection in the backward, and a check that
         the loss is finite at each print point
     :param preprocess: device-side image function applied in the steps (the
@@ -666,7 +669,6 @@ class Trainer:
         n_batches = len(loader)
         prof = (self._profiler()
                 if self.profile_dir and epoch == self.start_epoch else None)
-        end = time.time()
 
         def emit(batch_idx, loss, step):
             # loss readback only at print points: a sync per batch would
@@ -693,36 +695,48 @@ class Trainer:
                 batch_time=batch_time.avg, **cparams,
             )
 
-        start, images, base = end, 0, 0
-        for chunk in chunked(loader, K):
-            data_time.update(time.time() - end)
-            if prof is not None and base >= PROFILE_BATCHES:
+        images, base = 0, 0
+        chunks = chunked(loader, K)
+        with span("train.epoch") as whole:
+            while True:
+                # the wait for the next chunk is the data time; the last
+                # wait, which finds the loader exhausted, is not counted
+                with span("train.data") as wait:
+                    chunk = next(chunks, None)
+                if chunk is None:
+                    break
+                data_time.update(wait.seconds)
+                if prof is not None and base >= PROFILE_BATCHES:
+                    self._stop_profiler(prof)
+                    prof = None
+                images += (self._frames_per_item * self.process_count
+                           * sum(len(c[1]) for c in chunk))
+                count = self.optimizer.count
+                with span("train.step") as run:
+                    if launch is not None and len(chunk) == K:
+                        # K steps in one launch; timing meters are per
+                        # launch here
+                        losses = launch(np.stack([c[0] for c in chunk]),
+                                        np.stack([c[1] for c in chunk]),
+                                        frames)
+                        self.optimizer.count = count + K
+                    else:
+                        losses = []
+                        for x, poses, _ in chunk:
+                            x, poses = self._put(x, poses,
+                                                 index=frames is not None)
+                            losses.append(self.train_step(
+                                x, poses, seed=cfg.seed, frames=frames))
+                batch_time.update(wait.seconds + run.seconds)
+                for j in range(len(chunk)):
+                    if (base + j) % cfg.print_freq == 0:
+                        with span("train.emit"):
+                            emit(base + j, losses[j], count + j + 1)
+                base += len(chunk)
+            if prof is not None:
                 self._stop_profiler(prof)
-                prof = None
-            images += (self._frames_per_item * self.process_count
-                       * sum(len(c[1]) for c in chunk))
-            count = self.optimizer.count
-            if launch is not None and len(chunk) == K:
-                # K steps in one launch; timing meters are per launch here
-                losses = launch(np.stack([c[0] for c in chunk]),
-                                np.stack([c[1] for c in chunk]), frames)
-                self.optimizer.count = count + K
-            else:
-                losses = []
-                for x, poses, _ in chunk:
-                    x, poses = self._put(x, poses, index=frames is not None)
-                    losses.append(self.train_step(x, poses, seed=cfg.seed,
-                                                  frames=frames))
-            batch_time.update(time.time() - end)
-            for j in range(len(chunk)):
-                if (base + j) % cfg.print_freq == 0:
-                    emit(base + j, losses[j], count + j + 1)
-            base += len(chunk)
-            end = time.time()
-        if prof is not None:
-            self._stop_profiler(prof)
-        self._synchronize()
-        secs = time.time() - start
+            self._synchronize()
+        secs = whole.seconds
         self.epoch_stats.append(dict(epoch=epoch, secs=secs,
                                      data_secs=data_time.sum,
                                      steps=n_batches, images=images))
