@@ -109,7 +109,7 @@ from ..data.loader import Loader
 from ..data.vo_np import vos_logq_fc_np, vos_logq_np
 from ..geometry.metrics import quaternion_angular_error, translation_error
 from ..geometry.rotations import qexp_np
-from ..models.flax_import import state_dict_to_variables
+from ..models.flax_import import state_dict_tensors
 from ..models.quant import (
     QuantizedPoseNet,
     calibrate_activation_scales,
@@ -555,9 +555,13 @@ def _evaluate(
 def _serving_tree(posenet, quantize: bool, quantize_heads: bool,
                   calib_batches: int, batches) -> dict:
     """The int8 (calibrated on the iterable ``batches`` when
-    ``calib_batches``) or BN-folded tree of ``posenet``'s weights."""
+    ``calib_batches``) or BN-folded tree of ``posenet``'s weights, built
+    with torch ops where the weights are: on the card for a model there,
+    with no copy of a weight to the host (calibration reads back its
+    absmax values once). The ``eval.weights_to_host`` span is the read of
+    the ``state_dict``'s tensors as Flax-layout views on their device."""
     with span("eval.weights_to_host"):
-        variables = state_dict_to_variables(posenet.state_dict())
+        variables = state_dict_tensors(posenet.state_dict())
     stage_sizes = posenet.feature_extractor.stage_sizes
     if not quantize:
         return fold_posenet_variables(variables, stage_sizes)

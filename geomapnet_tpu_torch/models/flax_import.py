@@ -33,7 +33,8 @@ import torch
 
 from .torch_import import convert_lstm_weights
 
-__all__ = ["variables_to_state_dict", "state_dict_to_variables", "load_npz"]
+__all__ = ["variables_to_state_dict", "state_dict_to_variables",
+           "state_dict_tensors", "load_npz"]
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
 # VidLoc's LSTM cells and the suffix of their nn.LSTM direction
@@ -105,45 +106,71 @@ def variables_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
 _FROM_STATS = {v: k for k, v in _STATS.items()}
 
 
+def _flax_leaf(key: str, t: torch.Tensor):
+    """One PoseNet ``state_dict`` entry -> (collection, module path, Flax
+    name, a float32 tensor in the Flax layout): a conv's OIHW weight as an
+    HWIO view and a dense (O, I) weight as an (I, O) view, on the entry's
+    own device (a float32 entry is not copied)."""
+    *mod, leaf = key.split(".")
+    t = t.detach().to(torch.float32)
+    if leaf in _FROM_STATS:
+        return "batch_stats", mod, _FROM_STATS[leaf], t
+    if leaf == "weight" and t.dim() == 4:     # conv OIHW -> HWIO
+        return "params", mod, "kernel", t.permute(2, 3, 1, 0)
+    if leaf == "weight" and t.dim() == 2:     # dense (O, I) -> (I, O)
+        return "params", mod, "kernel", t.t()
+    if leaf == "weight":                      # BatchNorm
+        return "params", mod, "scale", t
+    if leaf == "bias":
+        return "params", mod, "bias", t
+    raise KeyError(f"unknown state_dict entry {key}")
+
+
+def _put(tree: dict, coll: str, mod: list, name: str, leaf) -> None:
+    node = tree[coll]
+    for p in mod:
+        node = node.setdefault(p, {})
+    node[name] = leaf
+
+
 def state_dict_to_variables(sd: Mapping[str, torch.Tensor]) -> dict:
     """The inverse of :func:`variables_to_state_dict`: a PoseNet
     ``state_dict`` -> PoseNet-rooted ``{"params", "batch_stats"}`` numpy
-    tree in the Flax layout, the input of the serving trees
-    (:func:`geomapnet_tpu_torch.models.quant.quantize_posenet_variables`).
-    Transposes only, so every value is carried exactly. VidLoc's ``lstm``
-    tensors become its two cells through :func:`convert_lstm_weights`."""
+    tree in the Flax layout (:func:`state_dict_tensors` copied to the
+    host). Transposes only, so every value is carried exactly. VidLoc's
+    ``lstm`` tensors become its two cells through
+    :func:`convert_lstm_weights`."""
     out: dict = {"params": {}, "batch_stats": {}}
     lstm = {}
     for key, t in sd.items():
         *mod, leaf = key.split(".")
         if leaf == "num_batches_tracked":
             continue
-        arr = t.detach().to("cpu", torch.float32).numpy()
         if mod == ["lstm"]:
-            lstm[leaf] = arr
+            lstm[leaf] = t.detach().to("cpu", torch.float32).numpy()
             continue
-        if leaf in _FROM_STATS:
-            coll, name = "batch_stats", _FROM_STATS[leaf]
-        elif leaf == "weight" and arr.ndim == 4:   # conv OIHW -> HWIO
-            coll, name, arr = "params", "kernel", arr.transpose(2, 3, 1, 0)
-        elif leaf == "weight" and arr.ndim == 2:   # dense (O, I) -> (I, O)
-            coll, name, arr = "params", "kernel", arr.T
-        elif leaf == "weight":                     # BatchNorm
-            coll, name = "params", "scale"
-        elif leaf == "bias":
-            coll, name = "params", "bias"
-        else:
-            raise KeyError(f"unknown state_dict entry {key}")
-        node = out[coll]
-        for p in mod:
-            node = node.setdefault(p, {})
-        node[name] = np.ascontiguousarray(arr)
+        coll, mod, name, t = _flax_leaf(key, t)
+        _put(out, coll, mod, name, np.ascontiguousarray(t.cpu().numpy()))
     for cell, sfx in _LSTM_CELLS.items():
         if f"weight_ih_l0{sfx}" in lstm:
             out["params"][cell] = {
                 gate: {k: np.ascontiguousarray(v) for k, v in leaves.items()}
                 for gate, leaves in convert_lstm_weights(
                     lstm, reverse=bool(sfx)).items()}
+    return out
+
+
+def state_dict_tensors(sd: Mapping[str, torch.Tensor]) -> dict:
+    """A PoseNet ``state_dict`` -> the tree of :func:`state_dict_to_variables`
+    with float32 tensor leaves where the entries are: views of the model's
+    own tensors in the Flax layout (a bf16 entry is cast where it is), no
+    copy to the host. The serving trees
+    (:func:`geomapnet_tpu_torch.models.quant.quantize_posenet_variables`)
+    are then prepared on the model's device."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, t in sd.items():
+        if not key.endswith(".num_batches_tracked"):
+            _put(out, *_flax_leaf(key, t))
     return out
 
 

@@ -17,10 +17,18 @@ basic-block trunk, the fused dataflow (:func:`_trunk_forward_fused`) keeps
 every activation int8 between convs: each conv's epilogue dequantizes,
 relus, adds the shortcut and requantizes to the next site's scale.
 
-Tree preparation is numpy, copied from the JAX module (its lines 61-195,
-283-293, 446-452 and 526-584): the trees equal the JAX package's bit for
-bit. The forwards run on :class:`QuantizedPoseNet`, an ``nn.Module`` that
-holds a prepared tree's tensors as buffers on the device. Every int8 conv,
+Tree preparation is the JAX module's numpy (its lines 61-195, 283-293,
+446-452 and 526-584) in torch ops, run on the device that holds the
+weights: a model's own tensors on the card
+(:func:`geomapnet_tpu_torch.models.flax_import.state_dict_tensors`, OIHW
+and (O, I) weights read as HWIO and (I, O) views, no copy) give a tree on
+the card; numpy variables (a Flax npz) give one on the CPU through the same
+code; :data:`tree_builds` counts each by where it ran. Either tree equals
+the JAX package's bit for bit: half-to-even rounding, true divisions (by
+127 as a tensor), the folded bias as two roundings. The forwards run on
+:class:`QuantizedPoseNet`, an ``nn.Module`` that holds a prepared tree's
+tensors as buffers on the tree's device (a tree on the card uploads
+nothing). Every int8 conv,
 fused or not, runs through the hand-written CUDA kernel K1, each site
 through its own :class:`geomapnet_tpu_torch.ops.cuda_quant.PreparedConv`
 (launch arguments prepared once), and the fused stem's
@@ -77,52 +85,69 @@ _PAD1 = ((1, 1), (1, 1))
 _PAD0 = ((0, 0), (0, 0))
 
 
-# ---------------------------------------------------------------- trees (numpy)
+# --------------------------------------------------------------------- trees
+
+# tree preparations run, by where their tensors were: "device" (a CUDA
+# card) or "host"
+tree_builds = {"device": 0, "host": 0}
+
+
+def _tensor(v) -> torch.Tensor:
+    """A tree leaf as a tensor: a tensor as it is, on its own device; an
+    array (or number) copied into a CPU tensor of its dtype."""
+    return v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v))
+
+
+def _f32(v) -> torch.Tensor:
+    return _tensor(v).to(torch.float32)
 
 
 def _bn_affine(bn_params: Mapping, bn_stats: Mapping):
-    """Inference BN as a per-channel affine: returns (a, b) with BN(z)=a*z+b."""
-    a = np.asarray(bn_params["scale"], np.float32) / np.sqrt(
-        np.asarray(bn_stats["var"], np.float32) + _BN_EPS
-    )
-    b = np.asarray(bn_params["bias"], np.float32) - np.asarray(
-        bn_stats["mean"], np.float32
-    ) * a
+    """Inference BN as a per-channel affine: returns (a, b) with BN(z)=a*z+b.
+    The square root is float32's correctly rounded one, taken in float64
+    (PyTorch's float32 ``sqrt`` on the CPU is off by an ulp at times; the
+    float64 root rounds to the same float32 as an exact one); ``b`` is two
+    roundings, the product's and the difference's."""
+    var = _f32(bn_stats["var"]) + _BN_EPS
+    a = _f32(bn_params["scale"]) / torch.sqrt(var.double()).float()
+    b = _f32(bn_params["bias"]) - _f32(bn_stats["mean"]) * a
     return a, b
 
 
-def _fold_conv_bn(kernel: np.ndarray, bn_params: Mapping, bn_stats: Mapping,
-                  ) -> dict:
+def _quantize_per_channel(w: torch.Tensor, dims) -> tuple:
+    """Symmetric per-output-channel int8 of ``w`` (float32, the output
+    channel last): the absmax over ``dims``, ``max(absmax, 1e-12) / 127``
+    as the scale. Returns (int8 weight, scale)."""
+    # a true division, numpy's: the divisor is a tensor, since on the card
+    # a division by a Python float multiplies by its reciprocal
+    w_scale = torch.clamp_min(w.abs().amax(dim=dims), 1e-12) / torch.full(
+        (), 127.0, device=w.device)
+    q = torch.clamp(torch.round(w / w_scale), -127, 127).to(torch.int8)
+    return q, w_scale
+
+
+def _fold_conv_bn(kernel, bn_params: Mapping, bn_stats: Mapping) -> dict:
     """Quantize one conv kernel with its BatchNorm folded in.
 
-    kernel: (H, W, I, O) float; BN affine a*z + b computed from
-    scale/bias/mean/var. Returns {qkernel int8, m (O,) f32, b (O,) f32} with
-    ``conv_int32 * (m * x_scale) + b`` reproducing BN(conv(x)).
+    kernel: (H, W, I, O) float (an HWIO view of an OIHW weight serves); BN
+    affine a*z + b computed from scale/bias/mean/var. Returns {qkernel
+    int8, m (O,) f32, b (O,) f32} with ``conv_int32 * (m * x_scale) + b``
+    reproducing BN(conv(x)).
     """
-    kernel = np.asarray(kernel, np.float32)
     a, b = _bn_affine(bn_params, bn_stats)
-
-    w_absmax = np.max(np.abs(kernel), axis=(0, 1, 2))  # per out channel
-    w_scale = np.maximum(w_absmax, 1e-12) / 127.0
-    qkernel = np.clip(np.round(kernel / w_scale), -127, 127).astype(np.int8)
-    return {
-        "qkernel": qkernel,
-        "m": (a * w_scale).astype(np.float32),
-        "b": b.astype(np.float32),
-    }
+    qkernel, w_scale = _quantize_per_channel(_f32(kernel), (0, 1, 2))
+    return {"qkernel": qkernel, "m": a * w_scale, "b": b}
 
 
-def _fold_conv_bn_float(kernel: np.ndarray, bn_params: Mapping,
-                        bn_stats: Mapping) -> dict:
+def _fold_conv_bn_float(kernel, bn_params: Mapping, bn_stats: Mapping
+                        ) -> dict:
     """Fold BN into the conv weights WITHOUT quantizing (serving float path).
 
     Returns {kernel (H,W,I,O) f32 scaled per out channel, b (O,) f32} with
     ``conv(x, kernel) + b`` reproducing BN(conv(x)) exactly (in f32).
     """
-    kernel = np.asarray(kernel, np.float32)
     a, b = _bn_affine(bn_params, bn_stats)
-    return {"kernel": (kernel * a).astype(np.float32),
-            "b": b.astype(np.float32)}
+    return {"kernel": _f32(kernel) * a, "b": b}
 
 
 def _walk_block(params: Mapping, stats: Mapping, fold) -> dict:
@@ -139,13 +164,6 @@ def _walk_block(params: Mapping, stats: Mapping, fold) -> dict:
             stats["downsample_bn"],
         )
     return out
-
-
-def _np_tree(tree: Mapping) -> dict:
-    """Nested dict with every leaf as a numpy array (the JAX module's
-    ``jax.tree.map(np.asarray, ...)``)."""
-    return {k: _np_tree(v) if isinstance(v, Mapping) else np.asarray(v)
-            for k, v in tree.items()}
 
 
 def _copy_containers(tree: Mapping) -> dict:
@@ -169,18 +187,20 @@ def _prepare_tree(variables: Mapping, stage_sizes, fold,
             name = f"layer{stage + 1}_{block}"
             trunk[name] = _walk_block(fe_p[name], fe_s[name], fold)
 
-    heads = {k: _np_tree(params[k]) for k in ("fc_feat", "fc_xyz", "fc_wpqr")}
+    # the heads as fresh contiguous tensors: the tree shares no storage with
+    # the weights it came from
+    heads = {k: {n: _tensor(v).clone(memory_format=torch.contiguous_format)
+                 for n, v in params[k].items()}
+             for k in ("fc_feat", "fc_xyz", "fc_wpqr")}
     if quantize_heads:
         # the 512->2048 fc_feat matmul is the only head worth int8; the
         # 3-wide pose heads are noise. Per-output-channel symmetric weights.
-        w = np.asarray(heads["fc_feat"]["kernel"], np.float32)  # (I, O)
-        w_scale = np.maximum(np.max(np.abs(w), axis=0), 1e-12) / 127.0
-        heads["fc_feat"] = {
-            "qkernel": np.clip(np.round(w / w_scale), -127, 127
-                               ).astype(np.int8),
-            "m": w_scale.astype(np.float32),
-            "b": np.asarray(heads["fc_feat"]["bias"], np.float32),
-        }
+        fc = heads["fc_feat"]
+        qkernel, w_scale = _quantize_per_channel(_f32(fc["kernel"]), 0)
+        heads["fc_feat"] = {"qkernel": qkernel, "m": w_scale,
+                            "b": _f32(fc["bias"])}
+    cpu = trunk["conv1"]["b"].device.type == "cpu"
+    tree_builds["host" if cpu else "device"] += 1
     return {"trunk": trunk, "heads": heads}
 
 
@@ -236,7 +256,7 @@ def _is_fusable(qtree: Mapping) -> bool:
     )
 
 
-def _stem_kernel_s2d(k7: np.ndarray) -> np.ndarray:
+def _stem_kernel_s2d(k7) -> torch.Tensor:
     """Rearrange a (7,7,C,O) stride-2 stem kernel for the S2D dataflow.
 
     The stride-2 7x7 conv ``y[i,j] = sum_{a,b} x[2i+a-3, 2j+b-3] k[a,b]``
@@ -244,26 +264,17 @@ def _stem_kernel_s2d(k7: np.ndarray) -> np.ndarray:
     x[2p+dh, 2q+dw]`` each tap ``a`` lands in block ``p = i + m - 2`` with
     ``a = 2m - 1 + dh``, so the whole stem is a STRIDE-1 4x4 conv over x2
     with padding (2, 1). (m=0, dh=0) falls outside the 7-tap support and
-    stays zero.
+    stays zero: one zero tap ahead of the kernel's rows and columns makes
+    it 8x8, whose index ``a + 1 = 2m + dh`` splits into (m, dh).
     """
+    k7 = _tensor(k7)
     kh, kw, c, o = k7.shape
     if (kh, kw) != (7, 7):
         raise ValueError(f"S2D stem rearrange expects a 7x7 kernel, "
                          f"got {(kh, kw)}")
-    k4 = np.zeros((4, 4, 4 * c, o), k7.dtype)
-    for m in range(4):
-        for dh in range(2):
-            a = 2 * m - 1 + dh
-            if not 0 <= a < 7:
-                continue
-            for n_ in range(4):
-                for dw in range(2):
-                    b = 2 * n_ - 1 + dw
-                    if not 0 <= b < 7:
-                        continue
-                    blk = (dh * 2 + dw) * c
-                    k4[m, n_, blk:blk + c, :] = k7[a, b]
-    return k4
+    k8 = F.pad(k7, (0, 0, 0, 0, 1, 0, 1, 0))
+    return k8.reshape(4, 2, 4, 2, c, o).permute(0, 2, 1, 3, 4, 5).reshape(
+        4, 4, 4 * c, o)
 
 
 def convert_stem_s2d(qtree: Mapping) -> dict:
@@ -280,7 +291,7 @@ def convert_stem_s2d(qtree: Mapping) -> dict:
     if c1["qkernel"].shape[:2] == (4, 4):
         return dict(qtree)  # already converted
     new_c1 = dict(c1)
-    new_c1["qkernel"] = _stem_kernel_s2d(np.asarray(c1["qkernel"]))
+    new_c1["qkernel"] = _stem_kernel_s2d(c1["qkernel"])
     out = dict(qtree)
     out["trunk"] = dict(qtree["trunk"])
     out["trunk"]["conv1"] = new_c1
@@ -295,8 +306,13 @@ def _stem_is_s2d(qtree: Mapping) -> bool:
 # ------------------------------------------------------ the tree on the device
 
 
-def _f32(v) -> torch.Tensor:
-    return torch.tensor(np.asarray(v, np.float32))
+def _buffer(v, device: torch.device) -> torch.Tensor:
+    """A float32 leaf as a contiguous tensor on ``device``: a tensor there
+    stays as it is; a host scalar (a calibrated ``x_scale``) is filled in
+    on the device, which copies nothing."""
+    if not isinstance(v, torch.Tensor) and np.ndim(v) == 0:
+        return torch.full((), float(np.float32(v)), device=device)
+    return _f32(v).to(device).contiguous()
 
 
 class _Site(nn.Module):
@@ -308,20 +324,22 @@ class _Site(nn.Module):
         super().__init__()
         self.int8 = "qkernel" in q
         if self.int8:
-            qk = np.asarray(q["qkernel"])
+            qk = _tensor(q["qkernel"])
+            dev = qk.device
             self.ksize = tuple(qk.shape[:2])
             self.cin = qk.shape[2]
             self.register_buffer("w", pack_conv_weight(qk))
-            self.register_buffer("m", _f32(q["m"]))
+            self.register_buffer("m", _buffer(q["m"], dev))
             self.register_buffer(
-                "x_scale", _f32(q["x_scale"]) if "x_scale" in q else None)
+                "x_scale", _buffer(q["x_scale"], dev) if "x_scale" in q
+                else None)
         else:
-            k = np.asarray(q["kernel"], np.float32)
+            k = _f32(q["kernel"])
+            dev = k.device
             self.ksize = tuple(k.shape[:2])
             self.cin = k.shape[2]
-            self.register_buffer("kernel", torch.from_numpy(
-                np.ascontiguousarray(k.transpose(3, 2, 0, 1))))
-        self.register_buffer("b", _f32(q["b"]))
+            self.register_buffer("kernel", k.permute(3, 2, 0, 1).contiguous())
+        self.register_buffer("b", _buffer(q["b"], dev))
         self._k1: PreparedConv | None = None
 
     def conv(self, x: torch.Tensor, s_in, **kw) -> torch.Tensor:
@@ -348,17 +366,20 @@ class _Dense(nn.Module):
         super().__init__()
         self.int8 = "qkernel" in p
         if self.int8:
+            qk = _tensor(p["qkernel"])
+            dev = qk.device
             # stored (O, I) and used transposed: the column-major (I, O)
             # operand that cuBLASLt's int8 product takes on every version
-            self.register_buffer("qkernel_t", torch.from_numpy(
-                np.ascontiguousarray(np.asarray(p["qkernel"]).T)))
-            self.register_buffer("m", _f32(p["m"]))
-            self.register_buffer("b", _f32(p["b"]))
+            self.register_buffer("qkernel_t", qk.t().contiguous())
+            self.register_buffer("m", _buffer(p["m"], dev))
+            self.register_buffer("b", _buffer(p["b"], dev))
             self.register_buffer(
-                "x_scale", _f32(p["x_scale"]) if "x_scale" in p else None)
+                "x_scale", _buffer(p["x_scale"], dev) if "x_scale" in p
+                else None)
         else:
-            self.register_buffer("kernel", _f32(p["kernel"]))
-            self.register_buffer("bias", _f32(p["bias"]))
+            kernel = _f32(p["kernel"])
+            self.register_buffer("kernel", kernel.contiguous())
+            self.register_buffer("bias", _buffer(p["bias"], kernel.device))
 
 
 class QuantizedPoseNet(nn.Module):
@@ -504,8 +525,12 @@ def calibrate_activation_scales(qtree: Mapping, batches,
     (N, H, W, 3) or (N, T, H, W, 3) preprocessed image tensors (or arrays) —
     on ``device`` (default: each batch's own), observing each conv input's
     absmax, and returns a new tree whose sites carry ``x_scale =
-    max_batches(absmax) / 127``. A dynamic scale couples batchmates, so the
-    scales equal the JAX package's only for the same batches.
+    max_batches(absmax) / 127``. The forward's net is built from the tree
+    where its tensors are (a tree on the batches' card uploads nothing);
+    the absmax values come back to the host in one copy, where each scale
+    is rounded as the JAX package rounds it. A dynamic scale couples
+    batchmates, so the scales equal the JAX package's only for the same
+    batches.
     """
     if _stem_is_s2d(qtree):
         raise ValueError("calibrate before convert_stem_s2d: the observer "

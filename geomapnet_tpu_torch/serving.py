@@ -75,7 +75,7 @@ class _Artifact(nn.Module):
 
 def _serving_core(model, quantize, fold_bn, calib_data, quantize_heads,
                   fuse_requant, device) -> nn.Module:
-    from .models.flax_import import state_dict_to_variables
+    from .models.flax_import import state_dict_tensors
     from .models.quant import (
         QuantizedPoseNet,
         _is_fusable,
@@ -85,7 +85,8 @@ def _serving_core(model, quantize, fold_bn, calib_data, quantize_heads,
     )
 
     posenet = getattr(model, "posenet", model)
-    variables = state_dict_to_variables(posenet.state_dict())
+    # the tree is built where the weights are, with no copy to the host
+    variables = state_dict_tensors(posenet.state_dict())
     stage_sizes = tuple(posenet.feature_extractor.stage_sizes)
     if quantize:
         qtree = quantize_posenet_variables(variables, stage_sizes,

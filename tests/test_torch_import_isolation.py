@@ -587,8 +587,9 @@ def test_parse_ini_copy(ini):
                                 "_fold_conv_bn_float", "_stem_kernel_s2d",
                                 "_walk_and_sites"])
 def test_quant_tree_copies(fn):
-    """The numpy tree preparation of models/quant.py: each copied helper
-    equals the original on the same inputs, exactly."""
+    """The tree preparation of models/quant.py, torch ops over the JAX
+    module's numpy: each helper equals the original on the same (numpy)
+    inputs, exactly."""
     import geomapnet_tpu.models.quant as jq
     from geomapnet_tpu_torch.models import quant as pq
 

@@ -4,7 +4,10 @@ The same numpy-seeded variables (a 2-2-2-2 basic-block trunk, feat_dim 64)
 and images go through :mod:`geomapnet_tpu.models.quant` and
 :mod:`geomapnet_tpu_torch.models.quant`:
 
-- the prepared trees and the calibrated scales equal JAX's bit for bit;
+- the prepared trees and the calibrated scales equal JAX's bit for bit,
+  from the numpy variables and from a PoseNet's ``state_dict`` tensors (the
+  same trees built on the card are held to these by
+  ``tests/test_torch_quant_card.py``);
 - the plain versions of the int8 conv (K1) and max-pool (K2) kernels equal
   ``lax.conv_general_dilated(..., preferred_element_type=int32)`` and
   ``lax.reduce_window`` exactly, with JAX's epilogues jitted with their
@@ -36,6 +39,7 @@ from geomapnet_tpu.models.resnet import resnet18 as jax_resnet18
 from geomapnet_tpu_torch.data.device_cache import quantize_rows
 from geomapnet_tpu_torch.models import quant as PQ
 from geomapnet_tpu_torch.models.flax_import import (
+    state_dict_tensors,
     state_dict_to_variables,
     variables_to_state_dict,
 )
@@ -108,21 +112,89 @@ def assert_tree_equal(got, want, path="") -> None:
 # ------------------------------------------------------------------- trees
 
 
-@pytest.mark.parametrize("kind", ["int8", "int8_heads", "folded", "s2d"])
-def test_trees_match_jax(variables, kind):
-    """qkernel, m, b, the folded kernels and the S2D stem kernel equal the
-    JAX package's bit for bit."""
+def _tree(q, variables, kind, stages):
+    """The ``kind`` tree of ``variables`` through the quant module ``q``."""
     if kind == "folded":
-        got = PQ.fold_posenet_variables(variables, STAGES)
-        want = JQ.fold_posenet_variables(variables, STAGES)
+        return q.fold_posenet_variables(variables, stages)
+    tree = q.quantize_posenet_variables(variables, stages,
+                                        kind == "int8_heads")
+    return q.convert_stem_s2d(tree) if kind == "s2d" else tree
+
+
+def _torch_posenet(variables, stages, bottleneck=False, dtype=torch.float32):
+    """The port's PoseNet holding ``variables`` (through the weight
+    bridge), its ``state_dict`` in its own OIHW and (O, I) layouts."""
+    from geomapnet_tpu_torch.models.posenet import PoseNet
+    from geomapnet_tpu_torch.models.resnet import Bottleneck, ResNet
+
+    block = dict(block_cls=Bottleneck) if bottleneck else {}
+    net = PoseNet(ResNet(stages, **block), feat_dim=64)
+    net.load_state_dict(variables_to_state_dict(variables))
+    return net.to(dtype)
+
+
+TREE_KINDS = ["int8", "int8_heads", "folded", "s2d"]
+
+
+@pytest.mark.parametrize("kind", TREE_KINDS + [
+    f"bottleneck_{k}" for k in TREE_KINDS])
+def test_trees_match_jax(variables, bottleneck_variables, kind):
+    """qkernel, m, b, the folded kernels and the S2D stem kernel equal the
+    JAX package's bit for bit: from the numpy variables, and from a
+    PoseNet's ``state_dict`` tensors read in place
+    (:func:`state_dict_tensors`), for the basic-block and the bottleneck
+    trunk. Both trees build the same ``QuantizedPoseNet`` buffers."""
+    if kind.startswith("bottleneck_"):
+        kind, v, stages = kind[11:], bottleneck_variables, (1, 1, 1, 1)
     else:
-        heads = kind == "int8_heads"
-        got = PQ.quantize_posenet_variables(variables, STAGES, heads)
-        want = JQ.quantize_posenet_variables(variables, STAGES, heads)
-        if kind == "s2d":
-            got, want = PQ.convert_stem_s2d(got), JQ.convert_stem_s2d(want)
-            assert got["trunk"]["conv1"]["qkernel"].shape == (4, 4, 12, 64)
+        v, stages = variables, STAGES
+    want = _tree(JQ, v, kind, stages)
+    got = _tree(PQ, v, kind, stages)
     assert_tree_equal(got, want)
+    if kind == "s2d":
+        assert got["trunk"]["conv1"]["qkernel"].shape == (4, 4, 12, 64)
+    sd = _torch_posenet(v, stages, bottleneck=v is not variables).state_dict()
+    from_sd = _tree(PQ, state_dict_tensors(sd), kind, stages)
+    assert_tree_equal(from_sd, want)
+    nets = [PQ.QuantizedPoseNet(t).state_dict() for t in (got, from_sd)]
+    assert nets[0].keys() == nets[1].keys()
+    for k in nets[0]:
+        assert torch.equal(nets[0][k], nets[1][k]), k
+
+
+def test_state_dict_tensors_read_in_place(variables):
+    """The ``state_dict`` read copies nothing: every leaf of a float32
+    model is a view of the model's own tensor, in the Flax layout; a bf16
+    model's leaves are its values in float32. A tree built from CPU
+    tensors counts as built on the host."""
+    net = _torch_posenet(variables, STAGES)
+    sd = net.state_dict()
+    tree = state_dict_tensors(sd)
+    fe = tree["params"]["feature_extractor"]
+    assert fe["conv1"]["kernel"].shape == (7, 7, 3, 64)
+    assert fe["conv1"]["kernel"].data_ptr() == \
+        sd["feature_extractor.conv1.weight"].data_ptr()
+    assert tree["params"]["fc_feat"]["kernel"].data_ptr() == \
+        sd["fc_feat.weight"].data_ptr()
+    assert tree["batch_stats"]["feature_extractor"]["bn1"]["var"] \
+        .data_ptr() == sd["feature_extractor.bn1.running_var"].data_ptr()
+    assert_tree_equal(tree, variables)
+    half = state_dict_tensors(
+        _torch_posenet(variables, STAGES, dtype=torch.bfloat16).state_dict())
+    fe16 = half["params"]["feature_extractor"]["layer2_0"]["conv1"]["kernel"]
+    assert fe16.dtype == torch.float32
+    np.testing.assert_array_equal(
+        fe16.numpy(), torch.from_numpy(variables["params"][
+            "feature_extractor"]["layer2_0"]["conv1"]["kernel"]).to(
+                torch.bfloat16).float().numpy())
+    before = dict(PQ.tree_builds)
+    qtree = PQ.quantize_posenet_variables(tree, STAGES)
+    PQ.fold_posenet_variables(variables, STAGES)
+    assert PQ.tree_builds == {"device": before["device"],
+                              "host": before["host"] + 2}
+    # the tree shares no storage with the model
+    assert qtree["heads"]["fc_xyz"]["bias"].data_ptr() != \
+        sd["fc_xyz.bias"].data_ptr()
 
 
 def test_mapnet_nesting_and_weight_bridge(variables):
