@@ -4,8 +4,8 @@ pipeline, datasets, experiment name, device.
 The PyTorch counterpart of :mod:`geomapnet_tpu.cli.builders`: 7Scenes, the
 synthetic scene and RobotCar (processed RGB frames, or raw mosaics with the
 device demosaic and, given camera models, the device undistortion), each
-with its ground-truth or VO ("real") poses, for PoseNet, MapNet and
-MapNet++.
+with its ground-truth or VO ("real") poses, for PoseNet, MapNet, MapNet++
+and VidLoc.
 """
 
 from __future__ import annotations
@@ -25,9 +25,11 @@ from ..losses.criterion import (
 )
 from ..models.posenet import MapNet, PoseNet
 from ..models.resnet import resnet18, resnet34, resnet50
+from ..models.vidloc import VidLoc
 from .config import ExperimentConfig
 
 __all__ = [
+    "MODELS",
     "build_model",
     "build_criteria",
     "build_transform",
@@ -35,24 +37,30 @@ __all__ = [
     "build_raw_device_preprocess",
     "build_frame_dataset",
     "build_datasets",
+    "clip_kwargs",
     "experiment_name",
     "pick_device",
 ]
 
 TRUNKS = {"resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50}
+MODELS = ("posenet", "mapnet", "mapnet++", "vidloc")
 
 
 def build_model(model_name: str, config: ExperimentConfig,
                 trunk: str = "resnet34", dtype: torch.dtype = torch.float32,
                 bn_bf16_bwd: bool = False) -> tuple[torch.nn.Module, bool]:
-    """Returns (module, is_tuple_model): a PoseNet, or a MapNet around one,
-    with the ``trunk`` feature extractor, ``config.dropout`` and compute
-    ``dtype`` (float32 parameters either way); ``bn_bf16_bwd`` gives the
-    trunk's BatchNorms the bfloat16 backward (forward unchanged). MapNet++
-    guards its log-q head against NaN gradients (``filter_nans``)."""
+    """Returns (module, is_tuple_model): a PoseNet, a MapNet around one,
+    or a VidLoc (its input (N, T) clips), with the ``trunk`` feature
+    extractor, ``config.dropout`` and compute ``dtype`` (float32
+    parameters either way); ``bn_bf16_bwd`` gives the trunk's BatchNorms
+    the bfloat16 backward (forward unchanged). MapNet++ guards its log-q
+    head against NaN gradients (``filter_nans``)."""
     if trunk not in TRUNKS:
         raise ValueError(
             f"unknown trunk {trunk!r}; pick from {sorted(TRUNKS)}")
+    if model_name == "vidloc":
+        return VidLoc(TRUNKS[trunk](dtype, bn_bf16_bwd=bn_bf16_bwd),
+                      droprate=config.dropout, dtype=dtype), True
     posenet = PoseNet(
         feature_extractor=TRUNKS[trunk](dtype, bn_bf16_bwd=bn_bf16_bwd),
         droprate=config.dropout, dtype=dtype,
@@ -68,8 +76,10 @@ def build_model(model_name: str, config: ExperimentConfig,
 def build_criteria(model_name: str, config: ExperimentConfig,
                    learn_beta: bool, learn_gamma: bool):
     """(train_criterion, val_criterion) as upstream scripts/train.py:86-101
-    builds them: sax/srx start at 0, beta/gamma seed saq/srq."""
-    if model_name == "posenet":
+    builds them: sax/srx start at 0, beta/gamma seed saq/srq. VidLoc's is
+    PoseNet's over its (N, T, 6) poses: the mean over every element is
+    that of the flattened (N*T, 6) frames."""
+    if model_name in ("posenet", "vidloc"):
         return (PoseNetCriterion(sax=0.0, saq=config.beta,
                                  learn_beta=learn_beta),
                 PoseNetCriterion())
@@ -270,13 +280,16 @@ def build_datasets(
     per-split decoded-frame RAM budget) as :func:`build_frame_dataset`
     takes them.
 
+    VidLoc's clips are MF tuples of ``config.steps`` consecutive frames
+    (skip 1, no variable skip).
+
     MapNet++ trains on :class:`~geomapnet_tpu_torch.data.composite.MFOnline`
     items and validates on nothing (``val_set`` None): the labeled train
     split, and the test split as the unlabeled one, built with the *train*
     transform and its ``config.vo_lib`` poses (VOs, or GPS positions when
     ``vo_lib`` is "gps"), whose absolute targets come from the ground truth
     of the same split in VO mode."""
-    if model_name not in ("posenet", "mapnet", "mapnet++"):
+    if model_name not in MODELS:
         raise ValueError(f"unknown model {model_name}")
     tf_train = build_transform(dataset, scene, config, asset_root, train=True,
                                seed=config.seed, keep_uint8=keep_uint8)
@@ -293,6 +306,10 @@ def build_datasets(
 
     if model_name == "posenet":
         return frames(True, tf_train), frames(False, tf_val)
+    if model_name == "vidloc":
+        clips = clip_kwargs(config)
+        return (MF(frames(True, tf_train, real=config.real), **clips),
+                MF(frames(False, tf_val, real=config.real), **clips))
     mf_kwargs = dict(steps=config.steps, skip=config.skip,
                      variable_skip=config.variable_skip, seed=config.seed)
     if model_name == "mapnet":
@@ -305,6 +322,13 @@ def build_datasets(
     val_mf = MF(unlab, include_vos=not gps, real=not gps, no_duplicates=True,
                 gt_dataset=gt_for_unlab, vo_func=vos_logq_np, **mf_kwargs)
     return MFOnline(train_mf, val_mf, gps_mode=gps), None
+
+
+def clip_kwargs(config: ExperimentConfig) -> dict:
+    """MF arguments of VidLoc's clips: ``config.steps`` consecutive
+    frames."""
+    return dict(steps=config.steps, skip=1, variable_skip=False,
+                seed=config.seed)
 
 
 def experiment_name(dataset, scene, model, config_file, learn_beta,

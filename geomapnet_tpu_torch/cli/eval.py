@@ -5,9 +5,10 @@ scripts/eval.py): per-frame L2 translation error and quaternion
 angular error, median and mean, over the middle frame of each tuple, with
 translations un-normalized by the scene's ``pose_stats.txt``.
 
-Ported so far, with PoseNet, MapNet or MapNet++ weights from a port checkpoint
-(``epoch_*.pth.tar`` of :mod:`geomapnet_tpu_torch.cli.train`), an upstream
-``.pth.tar`` or a Flax ``.npz``, in float32 or (``--bf16``) bfloat16:
+Ported so far, with PoseNet, MapNet, MapNet++ or VidLoc weights from a port
+checkpoint (``epoch_*.pth.tar`` of :mod:`geomapnet_tpu_torch.cli.train`), an
+upstream ``.pth.tar`` or a Flax ``.npz``, in float32 or (``--bf16``)
+bfloat16:
 
 - 7Scenes and the synthetic scene: host decode and resize to uint8, upload,
   normalize on the device; or, with ``--device_cache``, the whole scene
@@ -17,6 +18,12 @@ Ported so far, with PoseNet, MapNet or MapNet++ weights from a port checkpoint
     python -m geomapnet_tpu_torch.cli.eval --dataset 7Scenes --scene heads \\
         --model mapnet --config_file configs/mapnet.ini --weights w.npz \\
         --val --device_cache --data_path <root> --asset_root <assets>
+
+- VidLoc (``--model vidloc``): clips of the config's ``steps`` consecutive
+  frames, the T axis kept: every clip's frames through the trunk, the
+  recurrence over the clip (no frame dedup, no folding of the poses); the
+  errors, as for a tuple, of each clip's middle frame. The serving trunks
+  (``--quantize``, ``--fold_bn``) and ``--pose_graph`` are refused.
 
 - RobotCar: the processed RGB frames as 7Scenes' are, or the raw-Bayer
   mosaics through the device pipeline (``--raw_bayer``; undistorted on the
@@ -117,16 +124,19 @@ from ..models.quant import (
     fold_posenet_variables,
     quantize_posenet_variables,
 )
+from ..models.vidloc import VidLoc
 from ..pgo import optimize_poses_batch
 from ..train.checkpoint import load_weights, refuse_orbax
 from ..utils.trace import span
 from .builders import (
+    MODELS,
     TRUNKS,
     build_device_preprocess,
     build_frame_dataset,
     build_model,
     build_raw_device_preprocess,
     build_transform,
+    clip_kwargs,
     pick_device,
 )
 from .config import parse_ini
@@ -218,6 +228,11 @@ def evaluate(model: torch.nn.Module, dataset, device: torch.device,
     Its time is outside ``images_per_sec``, as in the JAX package, and is
     returned as "pgo_secs" (host clock, results on the host).
 
+    A :class:`~geomapnet_tpu_torch.models.vidloc.VidLoc` ``model`` takes an
+    MF dataset of clips and runs the tuple epoch (each clip's pose depends
+    on all its frames); ``dedup_frames``, ``pose_graph`` and the serving
+    trunks are refused with the reason.
+
     ``stochastic`` keeps the PoseNet's dropout active; batch (window) ``k``
     draws from ``window_generator(seed, k)``. The device cache then runs
     the tuple epoch (dedup is refused), and the serving trunks are refused.
@@ -306,6 +321,19 @@ def _evaluate(
     L = len(dataset.dset) if is_tuple else len(dataset)
     steps = dataset.steps if is_tuple else 1
     use_device_cache = device_cache is not False and device_cache is not None
+    clips = isinstance(getattr(model, "posenet", model), VidLoc)
+    if clips:
+        _refuse_for_clips(quantize=quantize, fold_bn=fold_bn,
+                         calib_batches=calib_batches,
+                         quantize_heads=quantize_heads,
+                         fuse_requant=fuse_requant, pose_graph=pose_graph)
+        if not is_tuple:
+            raise ValueError("VidLoc evaluates MF clips (the T axis is its "
+                             "recurrence's), not single frames")
+        if dedup_frames:
+            raise ValueError(
+                "dedup_frames needs a per-frame model: a VidLoc pose "
+                "depends on every frame of its clip")
     if dedup_frames and not use_device_cache:
         raise ValueError(
             "dedup_frames=True requires device_cache (the dedup epoch runs "
@@ -448,7 +476,8 @@ def _evaluate(
         with span("eval.epoch") as epoch:
             plan = plan_epoch(
                 idx_mat, batch_size,
-                per_frame=is_tuple and not (dynamic_q or stochastic),
+                per_frame=is_tuple and not (dynamic_q or stochastic
+                                            or clips),
                 dedup_frames=dedup_frames)
             if progress and (dp is None or dp.rank == 0):
                 print(f"eval: {plan.mode} epoch, {len(plan.windows)} "
@@ -548,8 +577,28 @@ def _evaluate(
         "median_q": float(np.median(q_err)),
         "mean_q": float(np.mean(q_err)),
         "images_per_sec": S * steps / max(epoch.seconds, 1e-9),
+        "outputs": output,
     })
     return result
+
+
+def _refuse_for_clips(**flags) -> None:
+    """Raise the ``ValueError`` of VidLoc's eval or export for the options
+    of ``flags`` that are on (keyword: the option's value)."""
+    trees = [k for k in ("quantize", "fold_bn", "calib_batches",
+                         "quantize_heads", "fuse_requant") if flags.get(k)]
+    if trees:
+        raise ValueError(
+            f"{', '.join(trees)} with VidLoc: the int8 and BN-folded "
+            f"serving trees are PoseNet's (a ResNet trunk read by fc_feat "
+            f"and two heads); VidLoc's trunk feeds an LSTM and fc_pose, so "
+            f"it runs float32 or bfloat16")
+    if flags.get("pose_graph"):
+        raise ValueError(
+            "pose_graph with VidLoc: the pose graph fuses a MapNet tuple's "
+            "absolute poses with the VOs between its frames; VidLoc's "
+            "recurrence already smooths its clip, and its clips carry no "
+            "VOs")
 
 
 def _serving_tree(posenet, quantize: bool, quantize_heads: bool,
@@ -653,7 +702,8 @@ def plot_trajectories(pred_poses, targ_poses, dataset_name, path):
 
 def _main(argv=None) -> dict:
     parser = argparse.ArgumentParser(
-        description="Evaluation script for PoseNet and MapNet (PyTorch)"
+        description="Evaluation script for PoseNet, MapNet and VidLoc "
+        "(PyTorch)"
     )
     parser.add_argument("--dataset", type=str, required=True,
                         choices=("7Scenes", "RobotCar", "synth"))
@@ -663,8 +713,7 @@ def _main(argv=None) -> dict:
         help="a port checkpoint (epoch_*.pth.tar), an upstream .pth.tar, or "
         "Flax variables as an .npz (save_npz format); a JAX orbax directory "
         "is refused with the conversion to that .npz")
-    parser.add_argument("--model", required=True,
-                        choices=("posenet", "mapnet", "mapnet++"))
+    parser.add_argument("--model", required=True, choices=MODELS)
     parser.add_argument("--trunk", default="resnet34",
                         choices=tuple(TRUNKS),
                         help="feature extractor (reference fixes resnet34)")
@@ -758,6 +807,13 @@ def _main(argv=None) -> dict:
     if Path(args.weights).suffix not in (".npz", ".tar", ".pth"):
         parser.error("--weights must be a .pth.tar / .pth checkpoint or an "
                      ".npz of Flax variables")
+    clips = args.model == "vidloc"
+    if clips:
+        _refuse_for_clips(quantize=args.quantize, fold_bn=args.fold_bn,
+                         calib_batches=args.calibrate,
+                         quantize_heads=args.quantize_heads,
+                         fuse_requant=args.fuse_requant,
+                         pose_graph=args.pose_graph)
     device, mesh = _join_launch(args.device)
     if args.device_cache == "shard" and mesh is None:
         parser.error("--device_cache shard needs a data-parallel group: "
@@ -773,8 +829,9 @@ def _main(argv=None) -> dict:
     config = parse_ini(args.config_file)
     fc_vos = args.dataset == "RobotCar"
     use_tuples = args.model.startswith("mapnet") or args.pose_graph
-    model, _ = build_model("mapnet" if use_tuples else "posenet", config,
-                           trunk=args.trunk, dtype=dtype)
+    model, _ = build_model(
+        "vidloc" if clips else "mapnet" if use_tuples else "posenet",
+        config, trunk=args.trunk, dtype=dtype)
     kind = load_weights(args.weights, model)
     model.to(device=device, memory_format=torch.channels_last)
     train = not args.val
@@ -804,13 +861,15 @@ def _main(argv=None) -> dict:
     )
     frames = build_frame_dataset(
         args.dataset, args.scene, data_path, train, config, transform=tf,
-        real=config.real if use_tuples else False,
+        real=config.real if use_tuples or clips else False,
         asset_root=args.asset_root,
         vo_lib=config.vo_lib if args.pose_graph else None,
         raw_bayer=args.raw_bayer, native_loader=args.native_loader,
         cache_gb=args.cache_frames,
     )
-    if use_tuples:
+    if clips:
+        dataset = MF(frames, **clip_kwargs(config))
+    elif use_tuples:
         gt_frames = None
         if args.pose_graph and config.real:
             # VO poses in the frames: the absolute targets come from the

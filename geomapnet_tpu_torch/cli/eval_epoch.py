@@ -22,6 +22,10 @@ through the per-frame PoseNet. Three kinds of epoch:
   and re-covers an overlap, whose rows the pose table takes from that last
   window.
 
+VidLoc's clips run the tuple epoch: a frame's pose depends on its whole
+clip, so no frame is shared between clips, and the step runs the trunk
+over the window's frames and the recurrence over each clip.
+
 Dedup (and so slice) runs only for a per-frame tuple model (MapNet): by
 default when it saves windows, always with ``dedup_frames=True`` (which
 PoseNet refuses), never with ``dedup_frames=False``. Dynamic-scale int8
@@ -66,6 +70,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from ..models.vidloc import VidLoc
 
 __all__ = ["EpochPlan", "plan_epoch", "make_step", "run_epoch",
            "gather_windows", "tuple_outputs", "tuple_index_matrix",
@@ -171,9 +177,26 @@ def make_step(model: torch.nn.Module, preprocess: Callable | None,
     ``mesh`` (a data-parallel group of ``W`` > 1 ranks): ``frames`` are
     this rank's ``B*T/W`` rows of the window, rank-major; their trunk
     features are all-gathered and the heads run on the whole window, whose
-    (B, T, 6) poses every rank returns."""
+    (B, T, 6) poses every rank returns.
+
+    A :class:`~geomapnet_tpu_torch.models.vidloc.VidLoc` runs its trunk
+    over the frames and its head (dropout, recurrence, ``fc_pose``) over
+    the B clips of T."""
     posenet = getattr(model, "posenet", model)
     gather = mesh is not None and mesh.world_size > 1
+    if isinstance(posenet, VidLoc):
+        def clip_step(frames: torch.Tensor,
+                      generator: torch.Generator | None = None
+                      ) -> torch.Tensor:
+            if preprocess is not None:
+                frames = preprocess(frames)
+            feats = posenet.features(frames)
+            if gather:
+                feats = mesh.all_gather(feats)
+            return posenet.head(feats.reshape(-1, steps, feats.shape[-1]),
+                                generator)
+
+        return clip_step
 
     def step(frames: torch.Tensor,
              generator: torch.Generator | None = None) -> torch.Tensor:

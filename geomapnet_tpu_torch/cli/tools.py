@@ -19,7 +19,8 @@ subcommands and flags (the reference's scripts/ toolbox):
 - ``reverse_vo_poses`` — reverse the frame ordering of a VO pose file;
 - ``export_model`` — a checkpoint as a serving artifact
   (:mod:`geomapnet_tpu_torch.serving`); ``--platforms`` names the devices
-  it may be loaded on, the first of which traces it;
+  it may be loaded on, the first of which traces it; ``--model vidloc``
+  makes a streaming artifact over the config's ``steps`` frames;
 - ``plot_vo_poses`` — the aligned real (VO / GPS) poses against the ground
   truth: their errors, and with ``--output`` a matplotlib figure (a
   machine without matplotlib refuses ``--output`` at once).
@@ -343,13 +344,16 @@ def reverse_vo_poses(args) -> None:
 
 def export_model(args) -> None:
     """Export a checkpoint as a serving artifact (``torch.export`` with the
-    weights baked in; see :mod:`geomapnet_tpu_torch.serving`)."""
+    weights baked in; see :mod:`geomapnet_tpu_torch.serving`). VidLoc
+    exports a streaming artifact of one frame a step over a window of
+    the config's ``steps`` frames."""
     import torch
 
     from ..serving import export_inference
     from ..train.checkpoint import load_weights
     from .builders import build_device_preprocess, build_model, pick_device
 
+    clips = args.model == "vidloc"
     config = parse_ini(args.config_file)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model, is_tuple = build_model(args.model, config, trunk=args.trunk,
@@ -360,21 +364,24 @@ def export_model(args) -> None:
               else pick_device(None))
     model.to(device=device, memory_format=torch.channels_last).eval()
     h, w = args.height, args.width
-    frame_shape = (config.steps, h, w, 3) if is_tuple else (h, w, 3)
+    frame_shape = (config.steps, h, w, 3) if is_tuple and not clips \
+        else (h, w, 3)
     preprocess = None
     in_dtype = dtype
     if not args.host_normalize and args.dataset != "synth":
         preprocess = build_device_preprocess(
             args.dataset, args.scene, args.asset_root, dtype=dtype)
         in_dtype = torch.uint8   # the artifact consumes resized uint8
+    window = config.steps if clips else None
     blob = export_inference(
         model, None, frame_shape, dtype=in_dtype, preprocess=preprocess,
-        platforms=platforms, quantize=args.quantize == "int8")
+        platforms=platforms, quantize=args.quantize == "int8", window=window)
     with open(args.output, "wb") as f:
         f.write(blob)
     print(f"{args.output} written ({len(blob)} bytes, input "
-          f"(b, {', '.join(map(str, frame_shape))}) "
-          f"{str(in_dtype).replace('torch.', '')})")
+          f"({'1' if clips else 'b'}, {', '.join(map(str, frame_shape))}) "
+          f"{str(in_dtype).replace('torch.', '')}"
+          + (f", a streaming window of {window} frames)" if clips else ")"))
 
 
 def main(argv=None):
@@ -434,7 +441,7 @@ def main(argv=None):
 
     p = sub.add_parser("export_model", parents=[common])
     p.add_argument("--model", required=True,
-                   choices=("posenet", "mapnet", "mapnet++"))
+                   choices=("posenet", "mapnet", "mapnet++", "vidloc"))
     p.add_argument("--trunk", default="resnet34",
                    choices=("resnet18", "resnet34", "resnet50"))
     p.add_argument("--config_file", required=True)

@@ -1,4 +1,4 @@
-"""Training CLI for PoseNet, MapNet and MapNet++.
+"""Training CLI for PoseNet, MapNet, MapNet++ and VidLoc.
 
 The PyTorch counterpart of :mod:`geomapnet_tpu.cli.train` (upstream
 scripts/train.py): the same flags, ``.ini`` semantics and experiment naming,
@@ -16,6 +16,10 @@ MapNet checkpoint's weights (``--checkpoint`` without ``--resume_optim``)::
         --model mapnet++ --config_file configs/mapnet++_RobotCar.ini \\
         --checkpoint logs/<mapnet experiment>/epoch_300.pth.tar \\
         --raw_bayer --device_cache --learn_beta --learn_gamma ...
+
+VidLoc (``--model vidloc``) trains on clips of the config's ``steps``
+consecutive frames (skip 1) under PoseNet's criterion over every frame of
+the clip.
 
 Checkpoints ``logs/<experiment>/epoch_*.pth.tar`` load into
 ``geomapnet_tpu_torch.cli.eval --weights``. ``--device`` defaults to the
@@ -67,6 +71,7 @@ from ..train.checkpoint import latest_checkpoint, load_weights, \
 from ..train.loop import Trainer
 from ..utils.logger import require_tensorboard
 from .builders import (
+    MODELS,
     TRUNKS,
     build_criteria,
     build_datasets,
@@ -101,15 +106,14 @@ def main(argv=None) -> Trainer:
 def _main(argv=None) -> Trainer:
     """Parse ``argv``, train, and return the :class:`Trainer`."""
     parser = argparse.ArgumentParser(
-        description="Training script for PoseNet, MapNet and MapNet++ "
-        "(PyTorch)"
+        description="Training script for PoseNet, MapNet, MapNet++ and "
+        "VidLoc (PyTorch)"
     )
     parser.add_argument("--dataset", type=str, required=True,
                         choices=("7Scenes", "RobotCar", "synth"))
     parser.add_argument("--scene", type=str, default="synth")
     parser.add_argument("--config_file", type=str, required=True)
-    parser.add_argument("--model", required=True,
-                        choices=("posenet", "mapnet", "mapnet++"))
+    parser.add_argument("--model", required=True, choices=MODELS)
     parser.add_argument("--trunk", default="resnet34", choices=tuple(TRUNKS),
                         help="feature extractor (reference fixes resnet34)")
     parser.add_argument("--device", type=str, default=None,

@@ -3,9 +3,12 @@
 The PyTorch counterpart of :mod:`geomapnet_tpu.models.vidloc` (upstream
 models/vidloc.py): a ResNet trunk encodes each frame, a bidirectional LSTM
 smooths the per-frame features over the sequence, and a linear head
-regresses each frame's 6-DoF pose. No CLI of either package reaches it;
-the train step (:func:`geomapnet_tpu_torch.train.state.make_train_step`)
-trains it under a ``PoseNetCriterion`` on (N, T, 6) targets.
+regresses each frame's 6-DoF pose. The port's CLIs reach it as ``--model
+vidloc`` (:mod:`geomapnet_tpu_torch.cli.builders`): it trains under a
+``PoseNetCriterion`` on (N, T, 6) targets, evaluates on (N, T) clips, and
+exports as a streaming artifact (:mod:`geomapnet_tpu_torch.serving`) that
+runs :meth:`VidLoc.features` once a frame and :meth:`VidLoc.head` over a
+window of them.
 
 The trunk runs over the N*T frames as one batch. The recurrence is one
 ``nn.LSTM`` (cuDNN on a card) from a zero state, as Flax's ``nn.RNN``
@@ -82,17 +85,20 @@ class VidLoc(nn.Module):
         self.fc_pose = Linear(hidden_size * (2 if bidirectional else 1), 6,
                               dtype)
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None,
-                keep_mask: torch.Tensor | None = None) -> torch.Tensor:
-        """(N, T, H, W, 3) -> (N, T, 6) ``[xyz, log-q]`` poses, float32.
+    def features(self, frames: torch.Tensor) -> torch.Tensor:
+        """(n, H, W, 3) frames -> (n, F) trunk features in ``dtype``: the
+        per-frame half of the forward, which a streaming session runs once
+        per frame (:mod:`geomapnet_tpu_torch.serving`)."""
+        return self.feature_extractor(frames).to(self.dtype)
 
-        In train mode, or with ``generator`` (on ``x``'s device) or an
-        (N*T, F) boolean ``keep_mask``, the dropout on the trunk features
-        is active."""
-        n, t = x.shape[0], x.shape[1]
-        feats = self.feature_extractor(
-            x.reshape((n * t,) + tuple(x.shape[2:]))).to(self.dtype)
+    def head(self, feats: torch.Tensor,
+             generator: torch.Generator | None = None,
+             keep_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """(N, T, F) trunk features -> (N, T, 6) poses, float32: the
+        dropout (as :meth:`forward` decides it, ``keep_mask`` (N*T, F)),
+        the recurrence over T from a zero state, and ``fc_pose``."""
+        n, t = feats.shape[0], feats.shape[1]
+        feats = feats.reshape(n * t, -1)
         if keep_mask is None and self.droprate > 0 and (
                 generator is not None or self.training):
             keep_mask = dropout_keep_mask(feats.shape, self.droprate,
@@ -103,3 +109,15 @@ class VidLoc(nn.Module):
                                             device=feats.device))
         h, _ = self.lstm(feats.reshape(n, t, -1).float())
         return self.fc_pose(h).float()
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None,
+                keep_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """(N, T, H, W, 3) -> (N, T, 6) ``[xyz, log-q]`` poses, float32.
+
+        In train mode, or with ``generator`` (on ``x``'s device) or an
+        (N*T, F) boolean ``keep_mask``, the dropout on the trunk features
+        is active."""
+        n, t = x.shape[0], x.shape[1]
+        feats = self.features(x.reshape((n * t,) + tuple(x.shape[2:])))
+        return self.head(feats.reshape(n, t, -1), generator, keep_mask)

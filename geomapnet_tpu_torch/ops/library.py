@@ -18,6 +18,12 @@ paths keep their prepared ctypes launches: a model routes through these
 operators only while it is traced (:func:`tracing`), as
 :mod:`geomapnet_tpu_torch.serving` traces it. A process that loads an exported
 artifact imports this module first, which registers the operators.
+
+One operator wraps no kernel of ours: ``geomapnet::lstm`` is a one-layer
+batch-first LSTM from a zero state (``aten::lstm``, cuDNN on a card).
+``torch.export`` traces ``aten::lstm`` through its time loop and fixes the
+sequence length; as an opaque operator the window of a streaming artifact
+(:mod:`geomapnet_tpu_torch.serving`) keeps a symbolic length.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ __all__ = [
     "demosaic_half_normalize",
     "int8_conv",
     "int8_maxpool3x3s2",
+    "lstm",
     "tracing",
 ]
 
@@ -129,3 +136,23 @@ def demosaic_half_normalize(raw: torch.Tensor, mean, std,
     through the ``geomapnet::demosaic_half_normalize`` operator."""
     return _demosaic_op(raw, [float(v) for v in mean],
                         [float(v) for v in std], dtype, planar)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::lstm", mutates_args=())
+def lstm(x: torch.Tensor, params: list[torch.Tensor],
+         bidirectional: bool) -> torch.Tensor:
+    """(N, T, F) float32 -> (N, T, D*H) outputs of a one-layer batch-first
+    ``nn.LSTM`` from a zero state, ``params`` its ``_flat_weights`` (each
+    direction's ``weight_ih``, ``weight_hh``, ``bias_ih``, ``bias_hh``),
+    the backward direction's outputs in time order after the forward's."""
+    d = 2 if bidirectional else 1
+    h0 = x.new_zeros((d, x.shape[0], params[1].shape[1]))
+    out, _, _ = torch.lstm(x, (h0, h0), params, True, 1, 0.0, False,
+                           bidirectional, True)
+    return out
+
+
+@lstm.register_fake
+def _(x, params, bidirectional):
+    d = 2 if bidirectional else 1
+    return x.new_empty((x.shape[0], x.shape[1], d * params[1].shape[1]))

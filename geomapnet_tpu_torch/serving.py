@@ -23,6 +23,16 @@ and moved at load. Tensors that the forward makes (a preprocess's
 constants) are stored beside the weights, and the loaded module holds all
 of them as buffers, so its ``.to(device)`` moves everything.
 
+A VidLoc model exports as a streaming artifact instead (``window`` T): two
+programs in one file, each with its weights. The trunk, with the
+preprocess fused in front, maps (b, H, W, 3) frames to (b, F) float32
+features; the recurrence (the bidirectional LSTM through the
+``geomapnet::lstm`` operator, then ``fc_pose``) maps a (1, n, F) window to
+its (1, n, 6) poses for any 1 <= n <= T. :func:`load_inference` then gives a
+:class:`Stream`, whose :meth:`Stream.session` keeps a stream's last T
+features in a ring on the card and runs the trunk once per frame
+(:class:`StreamSession`).
+
 Typical flow::
 
     blob = export_inference(model, None, frame_shape=(3, 256, 341, 3),
@@ -31,12 +41,22 @@ Typical flow::
     # ... in the serving process:
     infer = load_inference("mapnet.pt2")
     poses = infer(images)          # any batch size, on the card
+
+    # a VidLoc stream, one frame a request
+    blob = export_inference(vidloc, None, frame_shape=(256, 341, 3),
+                            dtype=torch.uint8, preprocess=preprocess,
+                            window=200)
+    session = load_inference(blob).session()
+    session.open(first_frames)     # up to T - 1 frames, one trunk batch
+    poses = session.step(frame)    # the window's (min(n, T), 6) poses
 """
 
 from __future__ import annotations
 
 import io
+import json
 import warnings
+import zipfile
 from pathlib import Path
 from typing import Callable
 
@@ -44,13 +64,23 @@ import torch
 from torch import nn
 from torch.export.passes import move_to_device_pass
 
-from .ops import library  # noqa: F401  (registers the kernels' operators)
+from .models.vidloc import VidLoc
+from .ops import library  # registers the kernels' operators
 from .utils.trace import span
 
-__all__ = ["export_inference", "load_inference", "Inference"]
+__all__ = ["export_inference", "load_inference", "Inference", "Stream",
+           "StreamSession", "stream_frames"]
 
 PLATFORMS = ("cuda", "cpu")
 _PLATFORMS_FILE = "platforms"
+# the members of a streaming artifact (a zip of two torch.export archives)
+_STREAM_FILE = "stream.json"
+_TRUNK_FILE = "trunk.pt2"
+_RECURRENCE_FILE = "recurrence.pt2"
+
+# frames through a streaming session's trunk and frame-steps through its
+# recurrence, over every session of the process
+stream_frames = {"trunk": 0, "window": 0}
 
 
 class _Artifact(nn.Module):
@@ -71,6 +101,39 @@ class _Artifact(nn.Module):
         n, t = images.shape[:2]
         poses = self.core(images.reshape((n * t,) + tuple(images.shape[2:])))
         return poses.reshape(n, t, -1)
+
+
+class _StreamTrunk(nn.Module):
+    """A streaming artifact's per-frame program: ``preprocess`` (if any),
+    the VidLoc trunk, float32 features."""
+
+    def __init__(self, feature_extractor: nn.Module,
+                 preprocess: Callable | None):
+        super().__init__()
+        self.feature_extractor = feature_extractor
+        self.preprocess = preprocess
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        if self.preprocess is not None:
+            frames = self.preprocess(frames)
+        return self.feature_extractor(frames).float()
+
+
+class _StreamRecurrence(nn.Module):
+    """A streaming artifact's window program: VidLoc's head in eval mode
+    (no dropout), its LSTM through the ``geomapnet::lstm`` operator, so
+    that the window's length stays symbolic."""
+
+    def __init__(self, lstm: nn.LSTM, fc_pose: nn.Module):
+        super().__init__()
+        self.lstm = lstm
+        self.fc_pose = fc_pose
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        lstm = self.lstm
+        params = [getattr(lstm, k) for k in lstm._flat_weights_names]
+        h = library.lstm(feats.float(), params, lstm.bidirectional)
+        return self.fc_pose(h).float()
 
 
 def _serving_core(model, quantize, fold_bn, calib_data, quantize_heads,
@@ -117,15 +180,17 @@ def export_inference(
     calib_data=None,
     quantize_heads: bool = False,
     fuse_requant: bool = False,
+    window: int | None = None,
 ) -> bytes:
     """Serialize the inference function (weights baked in).
 
-    :param model: a PoseNet or MapNet module; it is traced on the device
-        its weights are on
+    :param model: a PoseNet, MapNet or VidLoc module; it is traced on the
+        device its weights are on
     :param state: None (the model's own weights) or a ``state_dict`` of
         the model, loaded into it first
     :param frame_shape: per-sample shape WITHOUT the batch dim, e.g.
         ``(T, H, W, 3)`` for MapNet tuples or ``(H, W, 3)`` for PoseNet
+        and for a VidLoc stream
     :param dtype: input dtype the artifact accepts (uint8 when
         ``preprocess`` normalizes on the device)
     :param preprocess: optional device pipeline fused in front of the model
@@ -144,8 +209,25 @@ def export_inference(
         dataflow trunk (requantization fused into each conv's epilogue, the
         eval CLI's ``--fuse_requant``); needs static scales on every site
         and a basic-block trunk
-    :returns: serialized artifact bytes (``torch.export.save``)
+    :param window: a VidLoc model's streaming window T, the frames a
+        session keeps (needed for VidLoc, refused for the others)
+    :returns: serialized artifact bytes (``torch.export.save``; for VidLoc
+        a zip of the trunk's and the recurrence's)
     """
+    if isinstance(model, VidLoc):
+        if quantize or fold_bn or calib_data is not None or quantize_heads \
+                or fuse_requant:
+            raise ValueError(
+                "a VidLoc artifact serves its float model: the int8 and "
+                "BN-folded serving trees (quantize, fold_bn, calib_data, "
+                "quantize_heads, fuse_requant) are PoseNet's")
+        if state is not None:
+            model.load_state_dict(state)
+        return _export_stream(model, frame_shape, dtype, preprocess,
+                              platforms, window)
+    if window is not None:
+        raise ValueError("window is a VidLoc stream's; a PoseNet or MapNet "
+                         "artifact maps whole inputs to poses")
     if fuse_requant and not (quantize and calib_data is not None):
         raise ValueError(
             "fuse_requant needs quantize=True with calib_data "
@@ -153,11 +235,7 @@ def export_inference(
     if state is not None:
         model.load_state_dict(state)
     device = next(model.parameters()).device
-    platforms = tuple(platforms) if platforms else (device.type,)
-    unknown = set(platforms) - set(PLATFORMS)
-    if unknown:
-        raise ValueError(f"unknown platforms {sorted(unknown)}; pick from "
-                         f"{PLATFORMS}")
+    platforms = _platforms(device, platforms)
     quantized = quantize or fold_bn
     if quantized:
         core = _serving_core(model, quantize, fold_bn, calib_data,
@@ -179,6 +257,20 @@ def export_inference(
                                       dynamic_shapes=({0: batch},))
     finally:
         model.train(was_training)
+    return _save(program, {_PLATFORMS_FILE: ",".join(platforms)})
+
+
+def _platforms(device: torch.device, platforms) -> tuple[str, ...]:
+    platforms = tuple(platforms) if platforms else (device.type,)
+    unknown = set(platforms) - set(PLATFORMS)
+    if unknown:
+        raise ValueError(f"unknown platforms {sorted(unknown)}; pick from "
+                         f"{PLATFORMS}")
+    return platforms
+
+
+def _save(program, extra_files: dict | None = None) -> bytes:
+    """``program`` with its weights moved to the CPU, serialized."""
     program = move_to_device_pass(program, "cpu")
     buf = io.BytesIO()
     with warnings.catch_warnings():
@@ -186,8 +278,52 @@ def export_inference(
         # the writer takes the storage's whole byte range: right for
         # weights on the CPU, which is where they are stored
         warnings.filterwarnings("ignore", "No complete tensor found")
-        torch.export.save(program, buf,
-                          extra_files={_PLATFORMS_FILE: ",".join(platforms)})
+        torch.export.save(program, buf, extra_files=extra_files)
+    return buf.getvalue()
+
+
+def _export_stream(model: VidLoc, frame_shape: tuple[int, ...],
+                   dtype: torch.dtype, preprocess: Callable | None,
+                   platforms, window: int | None) -> bytes:
+    """A VidLoc streaming artifact: the trunk program (any batch of
+    ``frame_shape`` frames) and the recurrence program (a (1, n, F)
+    window, 1 <= n <= ``window``) in one zip, with the window and the
+    platforms."""
+    if window is None or int(window) < 1:
+        raise ValueError("a VidLoc artifact needs window >= 1: the frames "
+                         "a streaming session keeps")
+    window = int(window)
+    if len(frame_shape) != 3:
+        raise ValueError(f"a VidLoc stream takes one frame at a time: "
+                         f"frame_shape is (H, W, 3), not {frame_shape}")
+    device = next(model.parameters()).device
+    platforms = _platforms(device, platforms)
+    feat = model.feature_extractor.out_features
+    trunk = _StreamTrunk(model.feature_extractor, preprocess).eval()
+    recurrence = _StreamRecurrence(model.lstm, model.fc_pose).eval()
+    was_training = model.training
+    model.eval()
+    try:
+        frames = torch.zeros((2, *frame_shape), dtype=dtype, device=device)
+        p_trunk = torch.export.export(
+            trunk, (frames,), dynamic_shapes=({0: torch.export.Dim.AUTO},))
+        # a window of 2 in the example: 0 and 1 would be specialized
+        feats = torch.zeros((1, min(2, window), feat), device=device)
+        n = (torch.export.Dim("window", min=1, max=window) if window > 1
+             else None)
+        p_recurrence = torch.export.export(
+            recurrence, (feats,), dynamic_shapes=({1: n},))
+    finally:
+        model.train(was_training)
+    meta = {"window": window, "features": feat,
+            "frame_shape": list(frame_shape),
+            "dtype": str(dtype).replace("torch.", "")}
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as z:
+        z.writestr(_STREAM_FILE, json.dumps(meta))
+        z.writestr(_PLATFORMS_FILE, ",".join(platforms))
+        z.writestr(_TRUNK_FILE, _save(p_trunk))
+        z.writestr(_RECURRENCE_FILE, _save(p_recurrence))
     return buf.getvalue()
 
 
@@ -216,9 +352,11 @@ def _buffers_for_constants(module: nn.Module) -> None:
             mod.register_buffer(name, value, persistent=False)
 
 
-def load_inference(path_or_bytes, device=None) -> Inference:
+def load_inference(path_or_bytes, device=None) -> "Inference | Stream":
     """Load an artifact of :func:`export_inference` onto ``device`` (default:
-    the card); returns ``infer(images) -> poses`` for any batch size.
+    the card): an :class:`Inference` (``infer(images) -> poses`` for any
+    batch size), or for a VidLoc artifact a :class:`Stream`, whose
+    ``session()`` serves one frame at a time.
 
     Raises ``ValueError`` when the artifact was not exported for the
     device's type (``platforms``)."""
@@ -226,16 +364,201 @@ def load_inference(path_or_bytes, device=None) -> Inference:
             if isinstance(path_or_bytes, (bytes, bytearray))
             else Path(path_or_bytes).read_bytes())
     device = torch.device(device if device is not None else "cuda")
+    stream = _stream_members(blob)
+    if stream is not None:
+        _check_platforms(stream[_PLATFORMS_FILE].decode(), device)
+        meta = json.loads(stream[_STREAM_FILE])
+        return Stream(_module(_read(stream[_TRUNK_FILE]), device),
+                      _module(_read(stream[_RECURRENCE_FILE]), device),
+                      int(meta["window"]), int(meta["features"]), device)
     extra = {_PLATFORMS_FILE: ""}
+    program = _read(blob, extra)
+    platforms = _check_platforms(extra[_PLATFORMS_FILE], device)
+    return Inference(_module(program, device), platforms)
+
+
+def _check_platforms(listed: str, device: torch.device) -> tuple[str, ...]:
+    platforms = tuple(p for p in listed.split(",") if p)
+    if device.type not in platforms:
+        raise ValueError(f"the artifact was exported for {platforms}, not "
+                         f"{device.type}")
+    return platforms
+
+
+def _read(blob: bytes, extra_files: dict | None = None):
+    """One ``torch.export`` archive's program (its weights on the CPU)."""
     with warnings.catch_warnings():
         # the reader wraps the archive's bytes without a copy; inference
         # never writes to its weights
         warnings.filterwarnings("ignore", "The given buffer is not writable")
-        program = torch.export.load(io.BytesIO(blob), extra_files=extra)
-    platforms = tuple(p for p in extra[_PLATFORMS_FILE].split(",") if p)
-    if device.type not in platforms:
-        raise ValueError(f"the artifact was exported for {platforms}, not "
-                         f"{device.type}")
+        return torch.export.load(io.BytesIO(blob), extra_files=extra_files)
+
+
+def _module(program, device: torch.device) -> nn.Module:
+    """``program`` as a module on ``device``, its constants registered as
+    buffers."""
     module = move_to_device_pass(program, device).module()
     _buffers_for_constants(module)
-    return Inference(module, platforms)
+    return module
+
+
+def _stream_members(blob: bytes) -> dict | None:
+    """The members of a streaming artifact, or None for a plain one (a
+    ``torch.export`` archive, a zip without :data:`_STREAM_FILE`)."""
+    buf = io.BytesIO(blob)
+    if not zipfile.is_zipfile(buf):
+        return None
+    with zipfile.ZipFile(buf) as z:
+        if _STREAM_FILE not in z.namelist():
+            return None
+        return {name: z.read(name) for name in (
+            _STREAM_FILE, _PLATFORMS_FILE, _TRUNK_FILE, _RECURRENCE_FILE)}
+
+
+class Stream:
+    """A loaded VidLoc streaming artifact on ``device``: ``trunk`` maps (b,
+    H, W, 3) frames to (b, F) float32 features, ``recurrence`` a (1, n, F)
+    window (n <= ``window``) to its (1, n, 6) poses; :meth:`session` opens
+    a stream."""
+
+    def __init__(self, trunk: nn.Module, recurrence: nn.Module, window: int,
+                 features: int, device: torch.device):
+        self.trunk = trunk
+        self.recurrence = recurrence
+        self.window = window
+        self.features = features
+        self.device = device
+
+    def session(self) -> "StreamSession":
+        return StreamSession(self)
+
+
+class _Graphs:
+    """The trunk on one frame and the recurrence on a full window, each
+    captured in a CUDA graph over static buffers, after a warm-up run on a
+    side stream (the allocator and cuDNN set themselves up lazily). A
+    replay launches each program whole: the host no longer enqueues the
+    trunk's kernels and the recurrence's two a step and direction one by
+    one."""
+
+    def __init__(self, trunk: nn.Module, recurrence: nn.Module,
+                 frame: torch.Tensor, window: int, features: int):
+        dev = frame.device
+        self.frame = torch.empty(frame.shape, dtype=frame.dtype, device=dev)
+        self.frame.copy_(frame)
+        self.window = torch.zeros((1, window, features), dtype=torch.float32,
+                                  device=dev)
+        current = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            trunk(self.frame)
+            recurrence(self.window)
+        self.trunk_graph = torch.cuda.CUDAGraph()
+        self.recurrence_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.trunk_graph, stream=side):
+            self.feat = trunk(self.frame)
+        with torch.cuda.graph(self.recurrence_graph, stream=side,
+                              pool=self.trunk_graph.pool()):
+            self.poses = recurrence(self.window)
+        current.wait_stream(side)
+
+    def trunk(self, frame: torch.Tensor) -> torch.Tensor:
+        """(1, F) features of ``frame``, valid until the next replay."""
+        self.frame.copy_(frame)
+        self.trunk_graph.replay()
+        return self.feat
+
+    def recurrence(self, window: torch.Tensor) -> torch.Tensor:
+        """(T, 6) poses of a (T, F) window."""
+        self.window[0].copy_(window)
+        self.recurrence_graph.replay()
+        return self.poses[0].clone()
+
+
+class StreamSession:
+    """One stream of frames through a :class:`Stream`: the last T trunk
+    features live in a ring on the device, so each frame's trunk runs once.
+
+    The ring holds every slot twice (slot ``s`` and ``s + T``), so the
+    window of the last T frames, oldest first, is always one contiguous
+    view of it, whatever slot the newest frame took. Each :meth:`step` runs
+    the recurrence over the whole window from a zero state: VidLoc's full
+    forward over the window's frames, with each frame's trunk computed when
+    it arrived.
+
+    On a CUDA device (``graphs``) every step of a full window is two
+    CUDA-graph replays, the trunk's and the recurrence's, captured at the
+    first such step (:class:`_Graphs`): one step enqueues about a thousand
+    kernels otherwise, and the host, not the card, would set the pace. A
+    window that is still growing, or a session on the CPU, runs the
+    programs as they are.
+
+    Spans (:mod:`geomapnet_tpu_torch.utils.trace`): ``serve.stream`` around
+    a step, inside it ``serve.trunk``, ``serve.ring`` (the slot write and
+    the window's view) and ``serve.recurrence``; ``serve.open`` around
+    :meth:`open`. The module's :data:`stream_frames` counts frames through
+    the trunk and frame-steps through the recurrence."""
+
+    def __init__(self, stream: Stream):
+        self.trunk = stream.trunk
+        self.recurrence = stream.recurrence
+        self.window = stream.window
+        self.graphs = stream.device.type == "cuda"
+        self._graphs = None
+        with torch.inference_mode():
+            self.ring = torch.zeros((2 * stream.window, stream.features),
+                                    dtype=torch.float32, device=stream.device)
+        self.count = 0
+
+    def open(self, frames: torch.Tensor | None = None) -> None:
+        """Start the stream anew, primed with ``frames`` ((n, H, W, 3), n <
+        T, the oldest first) in one trunk batch."""
+        T = self.window
+        n = 0 if frames is None else int(frames.shape[0])
+        if n > T - 1:
+            raise ValueError(f"open takes at most T - 1 = {T - 1} frames, "
+                             f"not {n}: the next step makes the window")
+        self.count = 0
+        if not n:
+            return
+        with span("serve.open"), torch.inference_mode():
+            feats = self.trunk(frames)
+            self.ring.view(2, T, -1)[:, :n] = feats
+        self.count = n
+        stream_frames["trunk"] += n
+
+    def step(self, frame: torch.Tensor) -> torch.Tensor:
+        """One frame ((H, W, 3) or (1, H, W, 3)) in; the window's
+        (min(n, T), 6) poses out, oldest frame first, on the device."""
+        T = self.window
+        x = frame if frame.dim() == 4 else frame[None]
+        if x.shape[0] != 1:
+            raise ValueError(f"step takes one frame, not {x.shape[0]}")
+        slot = self.count % T
+        n = min(self.count + 1, T)
+        with span("serve.stream"), torch.inference_mode():
+            graphs = self._full_window_graphs(x) if n == T else None
+            with span("serve.trunk"):
+                feat = self.trunk(x) if graphs is None else graphs.trunk(x)
+            with span("serve.ring"):
+                self.ring.view(2, T, -1)[:, slot] = feat
+                # the newest frame sits at slot and slot + T: the window
+                # ends at whichever makes it n long
+                win = self.ring.narrow(0, slot + 1 if self.count >= T else 0,
+                                       n)
+            with span("serve.recurrence"):
+                poses = (self.recurrence(win[None])[0] if graphs is None
+                         else graphs.recurrence(win))
+        self.count += 1
+        stream_frames["trunk"] += 1
+        stream_frames["window"] += n
+        return poses
+
+    def _full_window_graphs(self, frame: torch.Tensor) -> _Graphs | None:
+        if not self.graphs:
+            return None
+        if self._graphs is None:
+            self._graphs = _Graphs(self.trunk, self.recurrence, frame,
+                                   self.window, self.ring.shape[1])
+        return self._graphs
