@@ -175,10 +175,15 @@ prints no result line):
    within 1e-4); the int8 serving configuration (calibrated on 2 batches,
    int8 heads, fused requant) with every int8 activation bit-equal to the
    in-process fused forward, poses within 1e-6, and K1 36 / K2 1 launches a
-   forward; CUDA-event ms a 60-frame batch, artifact and eager. (c) a
+   forward run node by node; the call itself (a CUDA graph a shape)
+   bit-equal to that run at its capture and at a replay, K1 72 / K2 2
+   launches at the capture (the warm-up, the capture) and none at a
+   replay; CUDA-event ms a 60-frame batch, artifact and eager. (c) a
    raw-Bayer artifact (the K4 pipeline fused) equal to the eager pipeline +
-   model, one K4 launch a forward. (d) ``cli.tools`` export_model (equal to
-   (b)'s float32 artifact) and time_imload on the card.
+   model, K4 launched twice from the host at the CUDA graph's capture (the
+   warm-up, the capture) and not at a replay. (d) ``cli.tools``
+   export_model (equal to (b)'s float32 artifact) and time_imload on the
+   card.
 
 11. Data parallel over ``torch.distributed``: W ranks, one per card (W =
    the largest of 4, 2, 1 that the visible cards allow; NCCL), each a
@@ -1120,7 +1125,8 @@ def check_int8_eval(p4: dict, npz: Path, config) -> dict:
     # heads within a few ulp of the pose scale
     x = torch.from_numpy(np.random.RandomState(SEED + 2).randn(
         2, 64, 96, 3).astype(np.float32))
-    cpu_net = quant.QuantizedPoseNet(s2d, torch.bfloat16, fused=True)
+    # the serving tree lives on the card: the CPU net moves it back
+    cpu_net = quant.QuantizedPoseNet(s2d, torch.bfloat16, fused=True).cpu()
     with torch.inference_mode():
         feat_c = quant._trunk_forward_fused(cpu_net, x, torch.float32)
         feat_g = quant._trunk_forward_fused(net, x.cuda(), torch.float32)
@@ -2821,6 +2827,22 @@ def check_serving(p4: dict, npz: Path, config, rc_root: Path, tmp: Path,
               f"{n_k1}, K2 {n_k2} launches")
         if gap > 1e-6 * scale:
             raise AssertionError("int8 artifact poses disagree")
+        # the call itself: this shape's CUDA graph, captured and replayed
+        graphed, launched = [], []
+        for _ in range(2):
+            zero()
+            graphed.append(infer(x))
+            launched.append((cuda_quant.launches["int8_conv"],
+                             cuda_quant.launches["int8_maxpool3x3s2"]))
+            count()
+        equal = [torch.equal(g.cpu(), torch.from_numpy(got))
+                 for g in graphed]
+        print(f"artifact int8_fused batch {b}, the call (CUDA graph): "
+              f"bit-equal to the run node by node at the capture "
+              f"{equal[0]}, at a replay {equal[1]}; K1, K2 launches at the "
+              f"capture {launched[0]}, at a replay {launched[1]}")
+        if not all(equal) or launched != [(72, 2), (0, 0)]:
+            raise AssertionError("int8 artifact's CUDA graph")
     x60 = tuples(B)
     with torch.inference_mode():
         art_ms = cuda_ms(lambda: infer(x60), reps=5, groups=3)
@@ -2845,17 +2867,23 @@ def check_serving(p4: dict, npz: Path, config, rc_root: Path, tmp: Path,
                                     dtype=torch.uint8, preprocess=raw_pre)
     infer = serving.load_inference(blob, "cuda")
     print(f"artifact raw_bayer: export + load {time.time() - t0:.2f} s")
+    # the first call of a shape runs the forward twice from the host (the
+    # warm-up and the CUDA graph's capture); a later call replays the graph
     zero()
     got = infer(raw)
     k4 = cuda_image.launches
     count()
+    zero()
+    replayed = infer(raw)
+    k4_replay = cuda_image.launches
     with torch.inference_mode():
         want = model(raw_pre(raw))
     gap = float((got - want).abs().max() / want[..., :3].abs().max())
     print(f"artifact raw_bayer, 2 tuples of 960x1280 mosaics: {gap} of the "
           f"largest translation from the eager pipeline + model (bound "
-          f"1e-5); K4 launches in its forward {k4}")
-    if k4 != 1 or gap > 1e-5:
+          f"1e-5); K4 launches at the capture {k4}, at a replay {k4_replay}")
+    if (k4 != 2 or k4_replay != 0 or gap > 1e-5
+            or not torch.equal(replayed, got)):
         raise AssertionError("raw-Bayer artifact")
     del infer
 

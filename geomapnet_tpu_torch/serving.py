@@ -33,6 +33,15 @@ its (1, n, 6) poses for any 1 <= n <= T. :func:`load_inference` then gives a
 features in a ring on the card and runs the trunk once per frame
 (:class:`StreamSession`).
 
+On a card, an :class:`Inference` replays its module as one CUDA graph per
+input (shape, dtype): the first call of a shape captures the graph over a
+static input buffer, each call then copies its images in, replays the
+graph and returns a copy of its output. The host enqueues one graph launch
+a request, not the program's operators one by one. The graphs of every
+shape share one memory pool, so an :class:`Inference` serves one thread at
+a time, and its module is not moved or changed after its first call on
+the card. On the CPU the module runs as it is.
+
 Typical flow::
 
     blob = export_inference(model, None, frame_shape=(3, 256, 341, 3),
@@ -69,7 +78,7 @@ from .ops import library  # registers the kernels' operators
 from .utils.trace import span
 
 __all__ = ["export_inference", "load_inference", "Inference", "Stream",
-           "StreamSession", "stream_frames"]
+           "StreamSession", "inference_graphs", "stream_frames"]
 
 PLATFORMS = ("cuda", "cpu")
 _PLATFORMS_FILE = "platforms"
@@ -81,6 +90,8 @@ _RECURRENCE_FILE = "recurrence.pt2"
 # frames through a streaming session's trunk and frame-steps through its
 # recurrence, over every session of the process
 stream_frames = {"trunk": 0, "window": 0}
+# CUDA graphs captured and replayed by every Inference of the process
+inference_graphs = {"captured": 0, "replayed": 0}
 
 
 class _Artifact(nn.Module):
@@ -329,15 +340,63 @@ def _export_stream(model: VidLoc, frame_shape: tuple[int, ...],
 
 class Inference:
     """A loaded artifact: ``infer(images) -> poses`` under
-    ``torch.inference_mode``; ``module`` is the loaded ``nn.Module``."""
+    ``torch.inference_mode``; ``module`` is the loaded ``nn.Module``.
+
+    A call on card images replays a CUDA graph of ``module``, one per
+    input (shape, dtype, device), captured at the first call of it after a
+    warm-up run on a side stream (the allocator and cuBLAS set themselves
+    up lazily). A call copies the images into the graph's static input,
+    replays it on the current stream and returns a clone of its static
+    output, so the poses stay valid past the next call. The graphs share
+    one memory pool and a replay reuses its buffers: an ``Inference``
+    serves one thread at a time. A graph holds the addresses of
+    ``module``'s weights and buffers, so on a card ``module`` is neither
+    moved (``.to()``) nor changed after its first call. Without the graphs
+    the module would enqueue its operators one by one, and the host, not
+    the card, would set the pace of a request. A failed capture raises.
+    Images on the CPU run through the module as it is.
+
+    Spans (:mod:`geomapnet_tpu_torch.utils.trace`): ``serve.call`` around a
+    call, ``serve.capture`` around a capture inside it. The module's
+    :data:`inference_graphs` counts captures and replays."""
 
     def __init__(self, module: nn.Module, platforms: tuple[str, ...]):
         self.module = module
         self.platforms = platforms
+        # (shape, dtype, device) -> (graph, static input, static output)
+        self._graphs: dict = {}
+        self._pool = None
 
     def __call__(self, images: torch.Tensor) -> torch.Tensor:
         with span("serve.call"), torch.inference_mode():
-            return self.module(images)
+            if not images.is_cuda:
+                return self.module(images)
+            key = (tuple(images.shape), images.dtype, images.device)
+            entry = self._graphs.get(key)
+            if entry is None:
+                with span("serve.capture"):
+                    entry = self._graphs[key] = self._capture(images)
+            graph, static_in, static_out = entry
+            static_in.copy_(images)
+            graph.replay()
+            inference_graphs["replayed"] += 1
+            return static_out.clone()
+
+    def _capture(self, images: torch.Tensor) -> tuple:
+        static_in = images.clone(memory_format=torch.contiguous_format)
+        current = torch.cuda.current_stream(images.device)
+        side = torch.cuda.Stream(images.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.module(static_in)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side, pool=self._pool):
+            static_out = self.module(static_in)
+        current.wait_stream(side)
+        if self._pool is None:
+            self._pool = graph.pool()
+        inference_graphs["captured"] += 1
+        return graph, static_in, static_out
 
 
 def _buffers_for_constants(module: nn.Module) -> None:

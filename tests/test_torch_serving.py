@@ -20,8 +20,9 @@ both packages (the port's through ``flax_import``):
 
 Beyond them: a bf16 artifact keeps the port's bf16 placement; a raw-Bayer
 artifact holds the demosaic kernel (K4) as an operator; ``platforms`` is
-enforced at load; the loaded module's ``.to()`` moves every tensor; an
-export leaves the eager paths' caches untouched.
+enforced at load; the loaded module's ``.to()`` moves every tensor; a
+CPU load runs its module as it is, with no CUDA graph; an export leaves
+the eager paths' caches untouched.
 """
 
 import jax
@@ -372,6 +373,24 @@ def test_platforms_and_moving_the_loaded_module(weights):
     assert tensors and all(t.device.type == "meta" for t in tensors)
     assert not [k for m in module.modules() for k, v in vars(m).items()
                 if isinstance(v, torch.Tensor)]
+
+
+def test_cpu_inference_runs_the_module_as_it_is(weights):
+    """On the CPU an ``Inference`` captures no CUDA graph:
+    ``serving.inference_graphs`` does not move, it keeps no graph, and each
+    call returns the loaded module's own forward, at every batch."""
+    model = _port_model(weights, True)
+    infer = serving.load_inference(serving.export_inference(
+        model, None, (3, 32, 32, 3), dtype=torch.float32), "cpu")
+    before = dict(serving.inference_graphs)
+    for batch in (1, 2, 2):
+        x = torch.from_numpy(_x((batch, 3, 32, 32, 3), seed=batch))
+        got = infer(x)
+        assert got.shape == (batch, 3, 6)
+        assert torch.equal(got, _eager(infer.module, x))
+        _close(got.numpy(), _eager(model, x).numpy(), F32_TOL)
+    assert serving.inference_graphs == before
+    assert not infer._graphs
 
 
 def test_export_leaves_eager_caches_alone(weights):
