@@ -268,6 +268,7 @@ its main path, error, times and bound; the last line is
 
 from __future__ import annotations
 
+import copy
 import importlib
 import importlib.util
 import json
@@ -1086,20 +1087,19 @@ def check_int8_eval(p4: dict, npz: Path, config) -> dict:
     posenet = getattr(model, "posenet", model)
     idx_mat = tuple_index_matrix(dataset, True)
     frames = p4["runs"]["b_cache_f32"]["device_frames"]
-    qtree = cli_eval._serving_tree(
-        posenet, True, True, CALIBRATE,
-        cli_eval._calibration_batches(
+    net = quant.serving_net(
+        posenet, frames.device, quantize=True, quantize_heads=True,
+        calib_batches=cli_eval._calibration_batches(
             dataset, True, lambda rows: frames.index_select(0, rows),
             idx_mat, CALIBRATE, B, preprocess, frames.device,
-            config.num_workers))
-    s2d = quant.convert_stem_s2d(qtree)
-    net = quant.QuantizedPoseNet(s2d, torch.bfloat16, fused=True).cuda()
+            config.num_workers),
+        fuse_requant=True, s2d_stem=True)
+    # the served net moved to the CPU, for the card-vs-CPU check below
+    cpu_net = copy.deepcopy(net).cpu()
     step = make_step(net, preprocess, T)
     shape = s2d_frame_shape(tuple(frames.shape[1:]))
     window = rows.narrow(0, 0, B * T).view((B * T,) + shape)
-    folded = quant.QuantizedPoseNet(
-        cli_eval._serving_tree(posenet, False, False, 0, None),
-        torch.bfloat16).cuda()
+    folded = quant.serving_net(posenet, frames.device, quantize=False)
     folded_step = make_step(folded, builders.build_device_preprocess(
         "7Scenes", "heads", str(p4["root"] / "assets"), dtype=torch.bfloat16),
         T)
@@ -1125,8 +1125,6 @@ def check_int8_eval(p4: dict, npz: Path, config) -> dict:
     # heads within a few ulp of the pose scale
     x = torch.from_numpy(np.random.RandomState(SEED + 2).randn(
         2, 64, 96, 3).astype(np.float32))
-    # the serving tree lives on the card: the CPU net moves it back
-    cpu_net = quant.QuantizedPoseNet(s2d, torch.bfloat16, fused=True).cpu()
     with torch.inference_mode():
         feat_c = quant._trunk_forward_fused(cpu_net, x, torch.float32)
         feat_g = quant._trunk_forward_fused(net, x.cuda(), torch.float32)

@@ -116,14 +116,7 @@ from ..data.loader import Loader
 from ..data.vo_np import vos_logq_fc_np, vos_logq_np
 from ..geometry.metrics import quaternion_angular_error, translation_error
 from ..geometry.rotations import qexp_np
-from ..models.flax_import import state_dict_tensors
-from ..models.quant import (
-    QuantizedPoseNet,
-    calibrate_activation_scales,
-    convert_stem_s2d,
-    fold_posenet_variables,
-    quantize_posenet_variables,
-)
+from ..models.quant import serving_net
 from ..models.vidloc import VidLoc
 from ..pgo import optimize_poses_batch
 from ..train.checkpoint import load_weights, refuse_orbax
@@ -253,7 +246,8 @@ def evaluate(model: torch.nn.Module, dataset, device: torch.device,
     replicated cache uploads by an all-gather (each rank decodes its
     share).
 
-    Serving trunks (:mod:`geomapnet_tpu_torch.models.quant`), under the JAX
+    Serving trunks (:func:`geomapnet_tpu_torch.models.quant.serving_net`,
+    whose ``quant.*`` spans run inside ``eval.serving_tree``), under the JAX
     package's argument names and checks: ``fold_bn`` runs the BN-folded
     float trunk in the model's dtype; ``quantize`` the int8 trunk in bf16,
     with dynamic scales unless ``calib_batches`` > 0 observes that many
@@ -427,20 +421,20 @@ def _evaluate(
             else:
                 def read(rows):
                     return frame_buf.index_select(0, rows)
+        calib = (_calibration_batches(
+            dataset, is_tuple, read, idx_mat, calib_batches, batch_size,
+            preprocess, device, num_workers)
+            if quantize and calib_batches else None)
         with span("eval.serving_tree"):
-            qtree = _serving_tree(
-                net, quantize, quantize_heads, calib_batches,
-                _calibration_batches(
-                    dataset, is_tuple, read, idx_mat, calib_batches,
-                    batch_size, preprocess, device, num_workers))
-            # int8 serves in bf16; BN folding keeps the model's own dtype
-            dtype = torch.bfloat16 if quantize else net.fc_feat.compute_dtype
-            with span("eval.build_net"):
-                # the prequantized row cache (JAX: cli/eval.py:304-365)
-                # runs the S2D stem
-                net = QuantizedPoseNet(
-                    convert_stem_s2d(qtree) if prequant else qtree, dtype,
-                    fused=bool(fuse_requant)).to(device)
+            # int8 serves in bf16, BN folding keeps the model's own dtype;
+            # the prequantized row cache (JAX: cli/eval.py:304-365) runs
+            # the S2D stem
+            net = serving_net(
+                net, device, quantize=quantize, quantize_heads=quantize_heads,
+                calib_batches=calib, fuse_requant=bool(fuse_requant),
+                s2d_stem=prequant,
+                dtype=(torch.bfloat16 if quantize
+                       else net.fc_feat.compute_dtype))
         if prequant:
             # the S2D rows, made once per scene, inside upload_secs
             with span("eval.quantize_rows") as rows:
@@ -599,28 +593,6 @@ def _refuse_for_clips(**flags) -> None:
             "absolute poses with the VOs between its frames; VidLoc's "
             "recurrence already smooths its clip, and its clips carry no "
             "VOs")
-
-
-def _serving_tree(posenet, quantize: bool, quantize_heads: bool,
-                  calib_batches: int, batches) -> dict:
-    """The int8 (calibrated on the iterable ``batches`` when
-    ``calib_batches``) or BN-folded tree of ``posenet``'s weights, built
-    with torch ops where the weights are: on the card for a model there,
-    with no copy of a weight to the host (calibration reads back its
-    absmax values once). The ``eval.weights_to_host`` span is the read of
-    the ``state_dict``'s tensors as Flax-layout views on their device."""
-    with span("eval.weights_to_host"):
-        variables = state_dict_tensors(posenet.state_dict())
-    stage_sizes = posenet.feature_extractor.stage_sizes
-    if not quantize:
-        return fold_posenet_variables(variables, stage_sizes)
-    with span("eval.quantize_tree"):
-        qtree = quantize_posenet_variables(variables, stage_sizes,
-                                           quantize_heads=quantize_heads)
-    if calib_batches:
-        with span("eval.calibrate"):
-            qtree = calibrate_activation_scales(qtree, batches)
-    return qtree
 
 
 def _calibration_batches(dataset, is_tuple: bool, read, idx_mat,

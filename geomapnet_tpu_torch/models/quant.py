@@ -38,7 +38,8 @@ tensors both take their plain versions. While the module is traced for
 export (:mod:`geomapnet_tpu_torch.serving`), K1 and K2 are called through
 their ``torch.library`` operators instead
 (:mod:`geomapnet_tpu_torch.ops.library`). The int8 ``fc_feat`` head's int32
-product runs on ``torch._int_mm``.
+product runs on ``torch._int_mm``. :func:`serving_net` builds a
+PoseNet's serving trunk for the eval and the exported artifact.
 
 Rounding follows what XLA compiles the JAX source to on the CPU: the
 dequant ``acc * ms + b`` is one FMA; a dynamic scale ``max(|x|, 1e-12) /
@@ -62,12 +63,15 @@ from ..ops.cuda_quant import (
     int8_maxpool3x3s2,
     pack_conv_weight,
 )
+from ..utils.trace import span
+from .flax_import import state_dict_tensors
 
 __all__ = [
     "quantize_posenet_variables",
     "fold_posenet_variables",
     "calibrate_activation_scales",
     "QuantizedPoseNet",
+    "serving_net",
     "posenet_apply_int8",
     "mapnet_apply_int8",
     "posenet_apply_folded",
@@ -567,6 +571,36 @@ def calibrate_activation_scales(qtree: Mapping, batches,
     for site, absmax in zip(sites, mx):
         site["x_scale"] = np.float32(max(float(absmax), 1e-12) / 127.0)
     return out
+
+
+
+def serving_net(posenet: nn.Module, device, *, quantize: bool,
+                quantize_heads: bool = False, calib_batches=None,
+                fuse_requant: bool = False, s2d_stem: bool = False,
+                dtype: torch.dtype = torch.bfloat16) -> QuantizedPoseNet:
+    """A PoseNet's int8 (``quantize``) or BN-folded serving trunk, a
+    :class:`QuantizedPoseNet` in ``dtype`` on ``device``: its tree built
+    where the weights are (no copy to the host), calibrated on
+    ``calib_batches`` (preprocessed batches, run on ``device``) when given,
+    with the S2D stem when ``s2d_stem``. Spans: ``quant.weights``,
+    ``quant.tree``, ``quant.calibrate``, ``quant.build``."""
+    with span("quant.weights"):
+        variables = state_dict_tensors(posenet.state_dict())
+    stage_sizes = tuple(posenet.feature_extractor.stage_sizes)
+    with span("quant.tree"):
+        if quantize:
+            tree = quantize_posenet_variables(variables, stage_sizes,
+                                              quantize_heads=quantize_heads)
+        else:
+            tree = fold_posenet_variables(variables, stage_sizes)
+    if calib_batches is not None:
+        with span("quant.calibrate"):
+            tree = calibrate_activation_scales(tree, calib_batches,
+                                               device=device)
+    with span("quant.build"):
+        if s2d_stem:
+            tree = convert_stem_s2d(tree)
+        return QuantizedPoseNet(tree, dtype, fused=fuse_requant).to(device)
 
 
 def _fused_basic_block(qx: torch.Tensor, s_in: torch.Tensor, q, stride,

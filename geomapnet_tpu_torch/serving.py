@@ -34,13 +34,8 @@ features in a ring on the card and runs the trunk once per frame
 (:class:`StreamSession`).
 
 On a card, an :class:`Inference` replays its module as one CUDA graph per
-input (shape, dtype): the first call of a shape captures the graph over a
-static input buffer, each call then copies its images in, replays the
-graph and returns a copy of its output. The host enqueues one graph launch
-a request, not the program's operators one by one. The graphs of every
-shape share one memory pool, so an :class:`Inference` serves one thread at
-a time, and its module is not moved or changed after its first call on
-the card. On the CPU the module runs as it is.
+input shape, and a :class:`StreamSession` each full-window step as two
+(one thread at a time; see there). On the CPU the modules run as they are.
 
 Typical flow::
 
@@ -73,8 +68,11 @@ import torch
 from torch import nn
 from torch.export.passes import move_to_device_pass
 
+from .models.quant import serving_net
+from .models.resnet import Bottleneck
 from .models.vidloc import VidLoc
 from .ops import library  # registers the kernels' operators
+from .utils.cuda_graph import capture
 from .utils.trace import span
 
 __all__ = ["export_inference", "load_inference", "Inference", "Stream",
@@ -147,38 +145,6 @@ class _StreamRecurrence(nn.Module):
         return self.fc_pose(h).float()
 
 
-def _serving_core(model, quantize, fold_bn, calib_data, quantize_heads,
-                  fuse_requant, device) -> nn.Module:
-    from .models.flax_import import state_dict_tensors
-    from .models.quant import (
-        QuantizedPoseNet,
-        _is_fusable,
-        calibrate_activation_scales,
-        fold_posenet_variables,
-        quantize_posenet_variables,
-    )
-
-    posenet = getattr(model, "posenet", model)
-    # the tree is built where the weights are, with no copy to the host
-    variables = state_dict_tensors(posenet.state_dict())
-    stage_sizes = tuple(posenet.feature_extractor.stage_sizes)
-    if quantize:
-        qtree = quantize_posenet_variables(variables, stage_sizes,
-                                           quantize_heads=quantize_heads)
-        if calib_data is not None:
-            qtree = calibrate_activation_scales(qtree, calib_data,
-                                                device=device)
-    else:
-        qtree = fold_posenet_variables(variables, stage_sizes)
-    if fuse_requant and not _is_fusable(qtree):
-        raise ValueError(
-            "fuse_requant needs calibrated static scales on every "
-            "site and a basic-block (resnet18/34) trunk")
-    # the JAX package's serving forwards compute in bfloat16
-    return QuantizedPoseNet(qtree, torch.bfloat16,
-                            fused=fuse_requant).to(device)
-
-
 def export_inference(
     model: nn.Module,
     state=None,
@@ -243,16 +209,23 @@ def export_inference(
         raise ValueError(
             "fuse_requant needs quantize=True with calib_data "
             "(static scales on every site)")
+    if fuse_requant and any(isinstance(m, Bottleneck)
+                            for m in model.modules()):
+        raise ValueError(
+            "fuse_requant needs calibrated static scales on every "
+            "site and a basic-block (resnet18/34) trunk")
     if state is not None:
         model.load_state_dict(state)
     device = next(model.parameters()).device
     platforms = _platforms(device, platforms)
     quantized = quantize or fold_bn
+    core = model
     if quantized:
-        core = _serving_core(model, quantize, fold_bn, calib_data,
-                             quantize_heads, fuse_requant, device)
-    else:
-        core = model
+        # the JAX package's serving forwards compute in bfloat16
+        core = serving_net(getattr(model, "posenet", model), device,
+                           quantize=quantize, quantize_heads=quantize_heads,
+                           calib_batches=calib_data if quantize else None,
+                           fuse_requant=fuse_requant, dtype=torch.bfloat16)
     artifact = _Artifact(core, preprocess, quantized)
     was_training = model.training
     model.eval()
@@ -343,11 +316,11 @@ class Inference:
     ``torch.inference_mode``; ``module`` is the loaded ``nn.Module``.
 
     A call on card images replays a CUDA graph of ``module``, one per
-    input (shape, dtype, device), captured at the first call of it after a
-    warm-up run on a side stream (the allocator and cuBLAS set themselves
-    up lazily). A call copies the images into the graph's static input,
-    replays it on the current stream and returns a clone of its static
-    output, so the poses stay valid past the next call. The graphs share
+    input (shape, dtype, device), captured at the first call of it
+    (:func:`~geomapnet_tpu_torch.utils.cuda_graph.capture`). A call copies
+    the images into the graph's static input, replays it on the current
+    stream and returns a clone of its static output, so the poses stay
+    valid past the next call. The graphs share
     one memory pool and a replay reuses its buffers: an ``Inference``
     serves one thread at a time. A graph holds the addresses of
     ``module``'s weights and buffers, so on a card ``module`` is neither
@@ -384,15 +357,8 @@ class Inference:
 
     def _capture(self, images: torch.Tensor) -> tuple:
         static_in = images.clone(memory_format=torch.contiguous_format)
-        current = torch.cuda.current_stream(images.device)
-        side = torch.cuda.Stream(images.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self.module(static_in)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side, pool=self._pool):
-            static_out = self.module(static_in)
-        current.wait_stream(side)
+        graph, static_out = capture(lambda: self.module(static_in),
+                                    images.device, pool=self._pool)
         if self._pool is None:
             self._pool = graph.pool()
         inference_graphs["captured"] += 1
@@ -494,11 +460,11 @@ class Stream:
 
 class _Graphs:
     """The trunk on one frame and the recurrence on a full window, each
-    captured in a CUDA graph over static buffers, after a warm-up run on a
-    side stream (the allocator and cuDNN set themselves up lazily). A
-    replay launches each program whole: the host no longer enqueues the
-    trunk's kernels and the recurrence's two a step and direction one by
-    one."""
+    captured in a CUDA graph over static buffers
+    (:func:`~geomapnet_tpu_torch.utils.cuda_graph.capture`, with its
+    warm-up), the recurrence's in the trunk's memory pool. A replay
+    launches each program whole: the host no longer enqueues the trunk's
+    kernels and the recurrence's two a step and direction one by one."""
 
     def __init__(self, trunk: nn.Module, recurrence: nn.Module,
                  frame: torch.Tensor, window: int, features: int):
@@ -507,20 +473,10 @@ class _Graphs:
         self.frame.copy_(frame)
         self.window = torch.zeros((1, window, features), dtype=torch.float32,
                                   device=dev)
-        current = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            trunk(self.frame)
-            recurrence(self.window)
-        self.trunk_graph = torch.cuda.CUDAGraph()
-        self.recurrence_graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.trunk_graph, stream=side):
-            self.feat = trunk(self.frame)
-        with torch.cuda.graph(self.recurrence_graph, stream=side,
-                              pool=self.trunk_graph.pool()):
-            self.poses = recurrence(self.window)
-        current.wait_stream(side)
+        self.trunk_graph, self.feat = capture(lambda: trunk(self.frame), dev)
+        self.recurrence_graph, self.poses = capture(
+            lambda: recurrence(self.window), dev,
+            pool=self.trunk_graph.pool())
 
     def trunk(self, frame: torch.Tensor) -> torch.Tensor:
         """(1, F) features of ``frame``, valid until the next replay."""

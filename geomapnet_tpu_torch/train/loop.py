@@ -74,6 +74,7 @@ from ..parallel.multihost import (
     on_shutdown,
     process_count,
 )
+from ..utils.cuda_graph import capture
 from ..utils.logger import AverageMeter, MetricsWriter, Tee
 from ..utils.trace import span
 from .checkpoint import load_model_params, restore_checkpoint, \
@@ -128,9 +129,10 @@ class KLaunch:
     On a card the stacks are copied into static device buffers and the K
     bodies run as one CUDA graph replay. The first launch runs them eagerly
     on a side stream (lazy set-up, the optimizer's state), the second
-    captures the graph on that stream and replays it, every later one only
-    replays. The graph reads ``frames`` and the model's tensors where they
-    were at capture, so a launch with another ``frames`` tensor raises.
+    captures the graph (:func:`~geomapnet_tpu_torch.utils.cuda_graph.
+    capture`) and replays it, every later one only replays. The graph reads
+    ``frames`` and the model's tensors where they were at capture, so a
+    launch with another ``frames`` tensor raises.
     Kernel wrappers count a launch at capture, not at replay:
     ``per_replay`` holds each counter's launches in one capture and
     ``replays`` the replays. On the CPU, or in a process whose
@@ -187,11 +189,11 @@ class KLaunch:
         self._stage(idx_k, poses_k)
         if not self.capture:
             return self._run(frames)
-        current = torch.cuda.current_stream(self.device)
         if self.graph is None:
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(current)
             if not self.warmed:
+                current = torch.cuda.current_stream(self.device)
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(current)
                 with torch.cuda.stream(side):
                     out = self._run(frames)
                 out.record_stream(current)
@@ -199,11 +201,9 @@ class KLaunch:
                 self.warmed = True
                 return out
             before = _kernel_launches()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side):
-                self._out = self._run(frames)
-            current.wait_stream(side)
-            self.graph = graph
+            # the first launch was the warm-up
+            self.graph, self._out = capture(lambda: self._run(frames),
+                                            self.device, warm_up=False)
             self._frames_ptr = frames.data_ptr()
             self.per_replay = {k: v - before[k]
                                for k, v in _kernel_launches().items()}

@@ -24,6 +24,7 @@ import geomapnet_tpu.models.quant as JQ
 from geomapnet_tpu.cli.config import ExperimentConfig
 from geomapnet_tpu_torch.cli import eval as port_eval
 from geomapnet_tpu_torch.data.sevenscenes import SevenScenes
+from geomapnet_tpu_torch.models import quant as PQ
 from geomapnet_tpu_torch.ops import cuda_quant
 from test_torch_device_cache import (
     N_FRAMES,
@@ -87,8 +88,7 @@ def _capture(monkeypatch, module, name, store, key):
 def test_evaluate_matches_jax(scene, weights, monkeypatch, model_name, kw):
     trees = {}
     _capture(monkeypatch, JQ, "calibrate_activation_scales", trees, "jax")
-    _capture(monkeypatch, port_eval, "calibrate_activation_scales", trees,
-             "port")
+    _capture(monkeypatch, PQ, "calibrate_activation_scales", trees, "port")
     got = _port_run(scene, weights, model_name, **kw)
     want = _jax_run(scene, weights, model_name, **kw)
     np.testing.assert_array_equal(got["targ_poses"], want["targ_poses"])

@@ -15,7 +15,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from geomapnet_tpu_torch.cli.eval import _serving_tree, evaluate
+from geomapnet_tpu_torch.cli.eval import evaluate
 from geomapnet_tpu_torch.data.composite import MF
 from geomapnet_tpu_torch.models import quant as PQ
 from geomapnet_tpu_torch.models.flax_import import state_dict_tensors
@@ -158,8 +158,9 @@ def test_int8_eval_builds_its_tree_on_card():
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        tree = _serving_tree(on_card.posenet, True, True, 2, iter(batches))
-        PQ.QuantizedPoseNet(PQ.convert_stem_s2d(tree), fused=True)
+        PQ.serving_net(on_card.posenet, card, quantize=True,
+                       quantize_heads=True, calib_batches=iter(batches),
+                       fuse_requant=True, s2d_stem=True)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()]
     assert sum("Memcpy DtoH" in n for n in names) == 1, sorted(set(names))

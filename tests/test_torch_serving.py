@@ -18,7 +18,10 @@ both packages (the port's through ``flax_import``):
   bf16 heads' tolerance of JAX's artifact;
 - the error contract of ``fuse_requant``.
 
-Beyond them: a bf16 artifact keeps the port's bf16 placement; a raw-Bayer
+Beyond them: ``models.quant.serving_net``, the one builder of the int8 and
+BN-folded serving trunks, equals the trunk built step by step from the
+tree functions, and the fused artifact serves what it builds.
+A bf16 artifact keeps the port's bf16 placement; a raw-Bayer
 artifact holds the demosaic kernel (K4) as an operator; ``platforms`` is
 enforced at load; the loaded module's ``.to()`` moves every tensor; a
 CPU load runs its module as it is, with no CUDA graph; an export leaves
@@ -43,7 +46,7 @@ from geomapnet_tpu_torch import serving
 from geomapnet_tpu_torch.models import quant as PQ
 from geomapnet_tpu_torch.models.flax_import import variables_to_state_dict
 from geomapnet_tpu_torch.models.posenet import MapNet, PoseNet
-from geomapnet_tpu_torch.models.resnet import resnet18
+from geomapnet_tpu_torch.models.resnet import Bottleneck, ResNet, resnet18
 from geomapnet_tpu_torch.ops import image as port_image
 from geomapnet_tpu_torch.ops import library
 from test_torch_train_step import one_torch_thread  # noqa: F401
@@ -54,6 +57,7 @@ F32_TOL = 1e-4
 # tests/test_torch_quant.py's INT8_POSE_TOL)
 INT8_POSE_TOL = 0.01
 MEAN, STD = (0.5,) * 3, (0.25,) * 3
+STAGES = (2, 2, 2, 2)
 
 
 def _seeded(model, shape, seed=0) -> dict:
@@ -284,6 +288,52 @@ def test_fused_requant_export_matches_in_process(weights, tmp_path):
     _close(got.numpy(), jax_load(jblob)(x), INT8_POSE_TOL)
 
 
+@pytest.mark.parametrize("case", ["int8_fused", "int8_dynamic", "int8_s2d",
+                                  "folded"])
+def test_serving_net_is_the_tree_steps(weights, case):
+    """``serving_net``, from a PoseNet's weights, gives bit for bit the
+    poses of the trunk built step by step from the tree functions: int8
+    calibrated and fused, int8 with dynamic scales, int8 with the S2D stem
+    (on prequantized S2D input), BN-folded float32. The fused trunk is also
+    what the exported artifact serves, on the same uint8 tuple."""
+    posenet = _port_model(weights, False)
+    calib = [torch.from_numpy(_x((4, 32, 32, 3), seed=9))]
+    static = case in ("int8_fused", "int8_s2d")
+    if case == "folded":
+        tree, dtype = PQ.fold_posenet_variables(weights, STAGES), \
+            torch.float32
+    else:
+        tree, dtype = PQ.quantize_posenet_variables(
+            weights, STAGES, quantize_heads=static), torch.bfloat16
+    if static:
+        tree = PQ.calibrate_activation_scales(tree, calib)
+    if case == "int8_s2d":
+        tree = PQ.convert_stem_s2d(tree)
+    want = PQ.QuantizedPoseNet(tree, dtype, fused=static)
+    got = PQ.serving_net(posenet, torch.device("cpu"),
+                         quantize=case != "folded", quantize_heads=static,
+                         calib_batches=calib if static else None,
+                         fuse_requant=static, s2d_stem=case == "int8_s2d",
+                         dtype=dtype)
+    x = torch.from_numpy(_x((3, 32, 32, 3)))
+    if case == "int8_s2d":
+        x = PQ.space_to_depth_input(PQ.quantize_input_int8(want, x))
+    poses = _eager(got, x)
+    assert poses.shape == (3, 6) and poses.abs().max() > 0
+    assert torch.equal(poses, _eager(want, x))
+    if case == "int8_fused":
+        def preprocess(u8):
+            return port_image.normalize(u8, MEAN, STD)
+
+        infer = serving.load_inference(serving.export_inference(
+            MapNet(posenet), None, (3, 32, 32, 3), dtype=torch.uint8,
+            preprocess=preprocess, quantize=True, calib_data=calib,
+            quantize_heads=True, fuse_requant=True), "cpu")
+        u8 = torch.randint(0, 256, (1, 3, 32, 32, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(5))
+        assert torch.equal(infer(u8)[0], _eager(got, preprocess(u8[0])))
+
+
 def test_fused_requant_export_error_contract(weights):
     """fuse_requant demands quantize + calib_data (JAX's contract and
     messages), and a fusable (basic-block) trunk."""
@@ -299,6 +349,17 @@ def test_fused_requant_export_error_contract(weights):
         with pytest.raises(ValueError, match="calib_data"):
             jax_export(jmodel, jstate, (3, 32, 32, 3), fuse_requant=True,
                        **kw)
+    # a bottleneck trunk, refused before any tree is built
+    torch.manual_seed(0)
+    deep = PoseNet(ResNet((1, 1, 1, 1), block_cls=Bottleneck), feat_dim=FEAT)
+    before = dict(PQ.tree_builds)
+    with pytest.raises(ValueError, match=(
+            r"^fuse_requant needs calibrated static scales on every site "
+            r"and a basic-block \(resnet18/34\) trunk$")):
+        serving.export_inference(deep, None, (32, 32, 3), quantize=True,
+                                 calib_data=[_x((2, 32, 32, 3))],
+                                 fuse_requant=True)
+    assert PQ.tree_builds == before
 
 
 def test_bf16_artifact_keeps_the_placement(weights):

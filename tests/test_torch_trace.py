@@ -9,9 +9,14 @@
   path with PGO, a two-step ``Trainer`` epoch and ``Inference.__call__``
   leave their ``gm.*`` ranges in the Chrome trace, each nested by time in
   its parent, and the numbers the program returns (``images_per_sec``,
-  ``upload_secs``, ``pgo_secs``, ``epoch_stats``) are the spans' seconds.
+  ``upload_secs``, ``pgo_secs``, ``epoch_stats``) are the spans' seconds:
+  exactly, on a stepped clock put in the spans' place, whose seconds for a
+  span follow from the spans the trace puts inside it.
+- On the real clock a span's seconds run inside its range.
 """
 
+import functools
+import itertools
 import json
 import time
 
@@ -46,12 +51,14 @@ EVAL_PHASES = ["eval.tuples", "eval.upload", "eval.serving_tree",
                "eval.quantize_rows", "eval.targets", "eval.epoch",
                "eval.errors"]
 EVAL_PARENT = {
-    "eval.weights_to_host": "eval.serving_tree",
-    "eval.quantize_tree": "eval.serving_tree",
-    "eval.calibrate": "eval.serving_tree",
-    "eval.build_net": "eval.serving_tree",
+    "quant.weights": "eval.serving_tree",
+    "quant.tree": "eval.serving_tree",
+    "quant.calibrate": "eval.serving_tree",
+    "quant.build": "eval.serving_tree",
     "eval.readback": "eval.epoch",
 }
+# the stepped clock's tick
+STEP_NS = 1_000_000
 
 
 def _posenet(seed=0) -> PoseNet:
@@ -86,12 +93,27 @@ def _inside(inner, outer) -> bool:
     return outer[0] <= inner[0] and inner[1] <= outer[1]
 
 
-def _close(seconds: float, interval) -> bool:
-    """A span's ``seconds`` against its range in the trace: the clock runs
-    inside the range, so it reads no more than the range and short of it
-    by no more than the profiler's own entry and exit."""
-    dur = (interval[1] - interval[0]) / 1e6
-    return seconds <= dur + 1e-6 and dur - seconds <= max(5e-3, 0.05 * dur)
+@pytest.fixture
+def stepped_clock(monkeypatch):
+    """The spans' clock, advanced by STEP_NS at each read."""
+    monkeypatch.setattr(trace, "_clock",
+                        functools.partial(next, itertools.count(0, STEP_NS)))
+
+
+def _stepped(interval, spans) -> float:
+    """The seconds of the span whose range is ``interval`` on the stepped
+    clock: one tick of its own and two for each span inside it, each of
+    which reads the clock at entry and at exit."""
+    inner = sum(_inside(iv, interval) for ivs in spans.values()
+                for iv in ivs) - 1
+    return (1 + 2 * inner) * STEP_NS / 1e9
+
+
+def _within(seconds: float, interval) -> bool:
+    """A span's real-clock ``seconds`` against its range in the trace: the
+    span opens its range before it reads the clock and closes it after, so
+    the seconds are no more than the range."""
+    return seconds <= (interval[1] - interval[0]) / 1e6 + 1e-6
 
 
 def test_span_off_enters_no_profiler_range(monkeypatch):
@@ -109,18 +131,23 @@ def test_span_off_enters_no_profiler_range(monkeypatch):
 
 def test_gate_flag_flips_under_the_profiler(tmp_path):
     """The private flag the gate reads: False, True while a profiler
-    records, False again."""
+    records, False again. The spans' real-clock seconds run inside their
+    ranges."""
     assert autograd_profiler._is_profiler_enabled is False
     with profile(activities=[ProfilerActivity.CPU]):
         assert autograd_profiler._is_profiler_enabled is True
     assert autograd_profiler._is_profiler_enabled is False
-    _, spans = _profiled(lambda: _nested(), tmp_path)
+    (outer, inner), spans = _profiled(lambda: _nested(), tmp_path)
     assert _inside(spans["inner"][0], spans["outer"][0])
+    assert 0 < inner.seconds <= outer.seconds
+    assert _within(outer.seconds, spans["outer"][0])
+    assert _within(inner.seconds, spans["inner"][0])
 
 
 def _nested():
-    with span("outer"), span("inner"):
+    with span("outer") as outer, span("inner") as inner:
         torch.ones(4).sum()
+    return outer, inner
 
 
 def _scene(n=24, **kw) -> MF:
@@ -134,7 +161,8 @@ def _frames(n=24) -> torch.Tensor:
                          dtype=torch.uint8)
 
 
-def test_int8_evaluate_spans_nest_and_feed_its_clocks(tmp_path):
+def test_int8_evaluate_spans_nest_and_feed_its_clocks(tmp_path,
+                                                     stepped_clock):
     ds = _scene()
     model = MapNet(_posenet())
     res, spans = _profiled(lambda: evaluate(
@@ -155,23 +183,22 @@ def test_int8_evaluate_spans_nest_and_feed_its_clocks(tmp_path):
     for phase in EVAL_PHASES:
         assert not any(_inside(spans[phase][0], iv)
                        for n, (iv,) in spans.items() if n != phase), phase
-    order = ["eval.weights_to_host", "eval.quantize_tree", "eval.calibrate",
-             "eval.build_net"]
+    order = ["quant.weights", "quant.tree", "quant.calibrate",
+             "quant.build"]
     assert all(spans[a][0][1] <= spans[b][0][0]
                for a, b in zip(order, order[1:]))
     # the returned clocks are the spans' seconds
-    epoch = len(ds) * ds.steps / res["images_per_sec"]
-    assert _close(epoch, spans["eval.epoch"][0])
-    up, rows = spans["eval.upload"][0], spans["eval.quantize_rows"][0]
-    assert res["upload_secs"] <= (up[1] - up[0] + rows[1] - rows[0]) / 1e6 \
-        + 2e-6
-    assert _close(res["upload_secs"] - (up[1] - up[0]) / 1e6, rows)
+    secs = {n: _stepped(iv, spans) for n, (iv,) in spans.items()}
+    assert secs["eval.epoch"] == 3 * STEP_NS / 1e9   # around eval.readback
+    assert res["images_per_sec"] == len(ds) * ds.steps / secs["eval.epoch"]
+    assert res["upload_secs"] == (secs["eval.upload"]
+                                  + secs["eval.quantize_rows"])
     # the row cache came out and the poses are finite
     assert res["device_frames"].dtype == torch.int8
     assert np.isfinite(res["pred_poses"]).all()
 
 
-def test_loader_evaluate_with_pgo_spans(tmp_path):
+def test_loader_evaluate_with_pgo_spans(tmp_path, stepped_clock):
     ds = _scene(16, include_vos=True)
     res, spans = _profiled(lambda: evaluate(
         MapNet(_posenet()), ds, CPU, batch_size=4, pose_graph=True,
@@ -182,13 +209,13 @@ def test_loader_evaluate_with_pgo_spans(tmp_path):
     assert spans["eval.tuples"][0][1] <= spans["eval.epoch"][0][0]
     assert spans["eval.epoch"][0][1] <= spans["eval.pgo"][0][0]
     assert spans["eval.pgo"][0][1] <= spans["eval.errors"][0][0]
-    assert _close(res["pgo_secs"], spans["eval.pgo"][0])
-    assert _close(len(ds) * ds.steps / res["images_per_sec"],
-                  spans["eval.epoch"][0])
+    assert res["pgo_secs"] == _stepped(spans["eval.pgo"][0], spans)
+    assert res["images_per_sec"] == len(ds) * ds.steps / _stepped(
+        spans["eval.epoch"][0], spans)
     assert "upload_secs" not in res
 
 
-def test_trainer_epoch_spans(tmp_path):
+def test_trainer_epoch_spans(tmp_path, stepped_clock):
     conf = ExperimentConfig(batch_size=8, seed=7, print_freq=1, opt="adam",
                             lr=1e-6, num_workers=1, do_val=False)
     trainer = Trainer(MapNet(_posenet()), MapNetCriterion(saq=-3.0,
@@ -212,10 +239,8 @@ def test_trainer_epoch_spans(tmp_path):
     assert set(spans) == {"train.epoch", "train.data", "train.step",
                           "train.emit"}
     # data_secs: the waits that fed a step; secs: the epoch span
-    fed = sum((e - s) / 1e6 for s, e in waits[:2])
-    assert stats["data_secs"] <= fed + 2e-6
-    assert fed - stats["data_secs"] <= 1e-2
-    assert _close(stats["secs"], epoch)
+    assert stats["data_secs"] == sum(_stepped(iv, spans) for iv in waits[:2])
+    assert stats["secs"] == _stepped(epoch, spans)
 
 
 def test_inference_call_span(tmp_path):
