@@ -4,6 +4,7 @@
     python3 chip_smoke.py --grid     # phase 12 alone (no result line)
     python3 chip_smoke.py --vidloc   # phase 13 alone, on its own small
                                      # scene and logdir (no result line)
+    python3 chip_smoke.py --lstm     # phase 14 alone (no result line)
 
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
@@ -260,6 +261,25 @@ prints no result line):
    it prints the skip line); ``cli.train --tensorboard`` writes an event
    file where the tensorboard package is installed, else stops at start
    with exit 2 naming the package. Each branch taken is printed.
+14. The stream's recurrence kernel (``csrc/lstm_persistent.cu``, behind the
+   ``geomapnet::lstm`` operator) at the stream's shape: one window of T =
+   200 frames of 512 features through a bidirectional LSTM of 512 a
+   direction (weights drawn as the stream cell draws them), its ptxas
+   report printed. It must stay within ``LSTM_TOL`` of its plain step loop
+   on the card and of ``torch.lstm`` (cuDNN), and give the same bits on a
+   second call. Prints the kernel's ms (CUDA-graph replays, with the
+   exchange words' memset), its latency floor (``EXCHANGE_PROBE``, built
+   here: the kernel's grid and its T dependent exchanges of h, with no
+   arithmetic), its operation bound (2 x 2 x T x 4H x (F + H) FLOP at 67
+   TFLOP/s float32), the plain loop's ms and cuDNN's (graph replays, its
+   weight-compaction copies included). Then a VidLoc streaming session
+   with the stream's LSTM (a ResNet-18 trunk on 64x80 frames) runs the
+   main path: two growing windows (eager, a launch each), the first full
+   window (its capture: 2 launches), then graphed steps under
+   ``torch.profiler``, each of which must run the kernel once, none of
+   cuDNN's RNN kernels, and launch nothing from the host. The kernel's
+   ``launches`` in the result line are this session's; prints a step's
+   device operations.
 
 The line before the last is a JSON object with every kernel's launches on
 its main path, error, times and bound; the last line is
@@ -4000,6 +4020,241 @@ def check_phase13(scene_root: Path, eval_argv: list, npz: Path,
     return vid
 
 
+LSTM_WINDOW, LSTM_FEATURES, LSTM_HIDDEN = 200, 512, 512
+# the kernel against its plain loop and cuDNN: float32 sums in three
+# orders over 200 dependent steps (tests/test_torch_lstm_kernel.py)
+LSTM_TOL = 1e-5
+LSTM_SOURCE = "geomapnet_tpu_torch/csrc/lstm_persistent.cu"
+FP32_FLOP_PER_S = 67e12
+
+
+# the floor of csrc/lstm_persistent.cu's steps: its grid (D x H/U CTAs of
+# U warps, launched cooperatively) and its exchange of h (a 64-bit (value,
+# step) word a unit, two slots by step parity, read until both of a
+# thread's words carry the step), with one barrier a step and no
+# arithmetic but a dependence on another CTA's h
+EXCHANGE_PROBE = r"""
+#include <cuda_runtime.h>
+
+__global__ void __launch_bounds__(256, 1)
+    exchange_probe(unsigned long long* xch, float* out, int T, int H, int U) {
+  __shared__ float hbuf[2][512];
+  const int ctas = H / U, dir = blockIdx.x / ctas;
+  const int j = (blockIdx.x - dir * ctas) * U + (threadIdx.x >> 5);
+  xch += (size_t)dir * 2 * H;
+  float h = 0.f;
+  for (int i = 0; i < T; ++i) {
+    if (i > 0) {
+      const unsigned long long* slot = xch + (size_t)((i - 1) & 1) * H;
+      for (int p = threadIdx.x; 2 * p < H; p += blockDim.x) {
+        unsigned long long w0, w1;
+        long long spins = 0;
+        do {
+          if (++spins > (1ll << 24)) __trap();
+          asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];"
+                       : "=l"(w0), "=l"(w1) : "l"(slot + 2 * p));
+        } while ((unsigned)(w0 >> 32) != (unsigned)i ||
+                 (unsigned)(w1 >> 32) != (unsigned)i);
+        hbuf[(i - 1) & 1][2 * p] = __uint_as_float((unsigned)w0);
+        hbuf[(i - 1) & 1][2 * p + 1] = __uint_as_float((unsigned)w1);
+      }
+      __syncthreads();
+      h = 0.5f * hbuf[(i - 1) & 1][(j + 1) % H] + 0.25f;
+    }
+    if ((threadIdx.x & 31) == 0)
+      asm volatile("st.volatile.global.u64 [%0], %1;" ::"l"(
+                       xch + (size_t)(i & 1) * H + j),
+                   "l"(((unsigned long long)(i + 1) << 32) |
+                       __float_as_uint(h))
+                   : "memory");
+  }
+  if ((threadIdx.x & 31) == 0) out[dir * H + j] = h;
+}
+
+extern "C" int gm_exchange_probe(unsigned long long* xch, float* out, int T,
+                                 int H, int D, int U, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(D * (H / U));
+  cfg.blockDim = dim3(32 * U);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, exchange_probe, xch, out, T, H,
+                                       U);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+"""
+
+
+def exchange_floor_ms(T: int, H: int, units: int) -> float:
+    """Graph-replay ms of ``EXCHANGE_PROBE`` over T steps of two
+    directions of H units (``units`` a CTA), with its slots' memset."""
+    import ctypes
+
+    from geomapnet_tpu_torch.ops import _nvcc
+
+    with tempfile.TemporaryDirectory(prefix="exchange_probe_") as d:
+        src, lib = Path(d) / "exchange_probe.cu", Path(d) / "probe.so"
+        src.write_text(EXCHANGE_PROBE)
+        subprocess.run([_nvcc.tool(), *_nvcc.NVCC_FLAGS, "-o", str(lib),
+                        str(src)], check=True, capture_output=True)
+        fn = ctypes.CDLL(str(lib)).gm_exchange_probe
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    out = torch.empty(2 * H, device="cuda")
+
+    def probe():
+        xch = torch.zeros((2, 2, H), dtype=torch.int64, device="cuda")
+        err = fn(xch.data_ptr(), out.data_ptr(), T, H, 2, units,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"exchange probe: cudaError_t {err}")
+
+    return graph_ms(probe)
+
+
+def check_lstm(card: str) -> dict:
+    """Phase 14: the persistent LSTM kernel at the stream's shape against
+    its plain loop and cuDNN, its time beside its floor, its bound, the
+    plain loop's and cuDNN's, then the stream session's main path. Returns
+    the kernel's row of the result line."""
+    import math
+
+    from geomapnet_tpu_torch.ops import _nvcc, cuda_rnn
+
+    t0 = time.time()
+    lines = [ln.strip() for ln in _nvcc.build_log(cuda_rnn.SOURCE).splitlines()
+             if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+    print("lstm_persistent ptxas:\n  " + "\n  ".join(lines))
+    T, F, H = LSTM_WINDOW, LSTM_FEATURES, LSTM_HIDDEN
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+    params = []
+    for _ in range(2):
+        q, r = torch.linalg.qr(torch.randn((4, H, H), generator=gen,
+                                           device=dev))
+        q = q * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))[:, None, :]
+        params += [torch.randn((4 * H, F), generator=gen, device=dev)
+                   / math.sqrt(F), q.reshape(4 * H, H).contiguous(),
+                   0.1 * torch.randn(4 * H, generator=gen, device=dev),
+                   0.1 * torch.randn(4 * H, generator=gen, device=dev)]
+    x = torch.randn((1, T, F), generator=gen, device=dev)
+    h0 = torch.zeros((2, 1, H), device=dev)
+
+    def kernel():
+        return cuda_rnn.lstm(x, params, True)
+
+    def cudnn():
+        return torch.lstm(x, (h0, h0), params, True, 1, 0.0, False, True,
+                          True)[0]
+
+    got = kernel()
+    torch.cuda.synchronize()
+    err_plain = float((got - cuda_rnn.lstm_reference(x, params, True)
+                       ).abs().max())
+    err_cudnn = float((got - cudnn()).abs().max())
+    print(f"lstm_persistent: max abs diff against the plain loop "
+          f"{err_plain:.3e}, against cuDNN {err_cudnn:.3e} (h in (-1, 1))")
+    if max(err_plain, err_cudnn) > LSTM_TOL:
+        raise AssertionError(f"lstm_persistent off by {err_plain}, "
+                             f"{err_cudnn} > {LSTM_TOL}")
+    if not torch.equal(kernel(), got):
+        raise AssertionError("lstm_persistent: two calls differ")
+    ms = graph_ms(kernel)
+    floor_ms = exchange_floor_ms(T, H, cuda_rnn.plan(
+        H, F, T, 2, torch.cuda.get_device_properties(0).multi_processor_count))
+    library_ms = graph_ms(cudnn)
+    plain_ms = cuda_ms(lambda: cuda_rnn.lstm_reference(x, params, True),
+                       reps=3, groups=3)
+    bound_ms = 2 * 2 * T * 4 * H * (F + H) / FP32_FLOP_PER_S * 1e3
+    ops, launches = check_stream_recurrence()
+    print(f"phase 14: {time.time() - t0:.2f} s; lstm_persistent (1, {T}, "
+          f"{F}) -> 2 x {H}: kernel {ms:.4f} ms ({ms / T * 1e3:.3f} us a "
+          f"step), floor of {T} exchanges {floor_ms:.4f} ms, operation "
+          f"bound {bound_ms:.4f} ms, plain loop {plain_ms:.4f} ms, cuDNN "
+          f"{library_ms:.4f} ms ({card}); a graphed stream step's device "
+          f"operations {ops}")
+    return {"launches": launches,
+            "max_abs_err": max(err_plain, err_cudnn), "ms": ms,
+            "floor_ms": floor_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "library_ms": library_ms}
+
+
+def check_stream_recurrence(steps: int = 10) -> tuple[dict, int]:
+    """Phase 14 (b): a VidLoc streaming session on the card whose
+    recurrence has the stream's LSTM (a ResNet-18 trunk's 512 features on
+    64x80 frames, 512 a direction, T = 200): opened with T - 3 frames, two
+    eager steps of growing windows (a launch each), the first full window
+    (its capture: the warm-up and the capture, 2 launches), then ``steps``
+    graphed steps under ``torch.profiler``: the persistent kernel must run
+    once a step and cuDNN's RNN kernels (``elemWiseRNNcell``,
+    ``gemv2T_kernel_val``) not at all, and a replay launches nothing from
+    the host. Returns the device operations a step, by name (shortened)
+    and count, and the session's launches of the kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from geomapnet_tpu_torch import serving
+    from geomapnet_tpu_torch.models import VidLoc
+    from geomapnet_tpu_torch.models.resnet import resnet18
+    from geomapnet_tpu_torch.ops import cuda_rnn
+    from geomapnet_tpu_torch.ops.image import normalize
+
+    def preprocess(frames):
+        return normalize(frames, (0.5, 0.45, 0.4), (0.25, 0.22, 0.2),
+                         dtype=torch.float32)
+
+    T = LSTM_WINDOW
+    torch.manual_seed(SEED + 21)
+    model = VidLoc(resnet18(), hidden_size=LSTM_HIDDEN).eval().cuda()
+    blob = serving.export_inference(model, None, frame_shape=(64, 80, 3),
+                                    dtype=torch.uint8, preprocess=preprocess,
+                                    window=T)
+    session = serving.load_inference(blob, "cuda").session()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 22)
+    frames = torch.randint(0, 256, (T + steps, 64, 80, 3), generator=gen,
+                           dtype=torch.uint8, device="cuda")
+    cuda_rnn.launches = 0
+    session.open(frames[:T - 3])
+    session.step(frames[T - 3])     # windows of T - 2 and T - 1: eager
+    session.step(frames[T - 2])
+    eager = cuda_rnn.launches
+    session.step(frames[T - 1])     # the first full window captures
+    torch.cuda.synchronize()
+    captured = cuda_rnn.launches - eager
+    print(f"phase 14 (b): the stream session's launches of the kernel: "
+          f"{eager} for 2 eager windows, {captured} at the capture")
+    if (eager, captured) != (2, 2):
+        raise AssertionError(f"the session launched the kernel {eager} "
+                             f"times for 2 eager windows, {captured} at "
+                             f"the capture (want 2, 2)")
+    launched = cuda_rnn.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            session.step(frames[T + i])
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CPU or e.self_device_time_total <= 0
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        ops[e.key[:60]] = ops.get(e.key[:60], 0) + e.count / steps
+    lstm = sum(n for k, n in ops.items() if "lstm_persistent_kernel" in k)
+    cudnn = [k for k in ops if "elemWiseRNNcell" in k or "gemv2T" in k]
+    if lstm != 1 or cudnn or cuda_rnn.launches != launched:
+        raise AssertionError(
+            f"a graphed stream step ran the persistent kernel {lstm} times "
+            f"(host launches {cuda_rnn.launches - launched}) and cuDNN's "
+            f"{cudnn}: {ops}")
+    return ops, cuda_rnn.launches
+
+
 def phase13_alone(tmp: Path) -> dict:
     """Phase 13 on its own inputs: a 60-frame 7Scenes scene with seeded
     MapNet weights, and a one-epoch synthetic training run's logdir."""
@@ -4053,7 +4308,7 @@ def main() -> int:
         load_npz,
         variables_to_state_dict,
     )
-    from geomapnet_tpu_torch.ops import _nvcc, cuda_image, cuda_quant
+    from geomapnet_tpu_torch.ops import _nvcc, cuda_image, cuda_quant, cuda_rnn
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4067,7 +4322,7 @@ def main() -> int:
     # phase 1: build every kernel, one nvcc per source, all at once
     t0 = time.time()
     sources = [cuda_image.SOURCE, cuda_quant.CONV_SOURCE,
-               cuda_quant.POOL_SOURCE]
+               cuda_quant.POOL_SOURCE, cuda_rnn.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(_nvcc.build, sources))
     print(f"build: {', '.join(lib.name for lib in libs)} in "
@@ -4254,6 +4509,9 @@ def main() -> int:
             p4["root"], [a for a in p4["argv"] if a != "--val"], npz,
             mapnet_7s.parent, tmp, card)
 
+    # phase 14: the stream's recurrence kernel
+    rnn = check_lstm(card)
+
     f32 = kernel["float32"]
     # K4's bound: each mosaic byte read once, each float32 output written
     # once (60x960x1280 uint8 -> 60x3x480x640 float32)
@@ -4300,6 +4558,19 @@ def main() -> int:
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"],
+    }, {
+        "name": "lstm_persistent",
+        "route": "cuda",
+        "source": LSTM_SOURCE,
+        "replaces": None,
+        "launches": rnn["launches"],
+        "max_abs_err": rnn["max_abs_err"],
+        "ms": rnn["ms"],
+        "floor_ms": rnn["floor_ms"],
+        "plain_ms": rnn["plain_ms"],
+        "bound_ms": rnn["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": rnn["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -4324,5 +4595,13 @@ if __name__ == "__main__":
         torch.backends.cuda.matmul.allow_tf32 = False
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
             print(phase13_alone(Path(d)))
+        sys.exit(0)
+    if sys.argv[1:] == ["--lstm"]:      # phase 14 alone, no result line
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device is visible")
+        sys.path.insert(0, str(ROOT))
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(check_lstm(card_line()))
         sys.exit(0)
     sys.exit(main())

@@ -19,10 +19,11 @@ operators only while it is traced (:func:`tracing`), as
 :mod:`geomapnet_tpu_torch.serving` traces it. A process that loads an exported
 artifact imports this module first, which registers the operators.
 
-One operator wraps no kernel of ours: ``geomapnet::lstm`` is a one-layer
-batch-first LSTM from a zero state (``aten::lstm``, cuDNN on a card).
-``torch.export`` traces ``aten::lstm`` through its time loop and fixes the
-sequence length; as an opaque operator the window of a streaming artifact
+``geomapnet::lstm`` is a one-layer batch-first LSTM from a zero state
+(:func:`~geomapnet_tpu_torch.ops.cuda_rnn.lstm`: the persistent recurrence
+kernel on a card, its plain step loop on the CPU). ``torch.export`` would
+trace ``aten::lstm`` through its time loop and fix the sequence length; as
+an opaque operator the window of a streaming artifact
 (:mod:`geomapnet_tpu_torch.serving`) keeps a symbolic length.
 """
 
@@ -30,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda_image, cuda_quant
+from . import cuda_image, cuda_quant, cuda_rnn
 
 __all__ = [
     "NAMESPACE",
@@ -144,12 +145,9 @@ def lstm(x: torch.Tensor, params: list[torch.Tensor],
     """(N, T, F) float32 -> (N, T, D*H) outputs of a one-layer batch-first
     ``nn.LSTM`` from a zero state, ``params`` its ``_flat_weights`` (each
     direction's ``weight_ih``, ``weight_hh``, ``bias_ih``, ``bias_hh``),
-    the backward direction's outputs in time order after the forward's."""
-    d = 2 if bidirectional else 1
-    h0 = x.new_zeros((d, x.shape[0], params[1].shape[1]))
-    out, _, _ = torch.lstm(x, (h0, h0), params, True, 1, 0.0, False,
-                           bidirectional, True)
-    return out
+    the backward direction's outputs in time order after the forward's:
+    :func:`~geomapnet_tpu_torch.ops.cuda_rnn.lstm`."""
+    return cuda_rnn.lstm(x, params, bidirectional)
 
 
 @lstm.register_fake

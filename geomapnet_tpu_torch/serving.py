@@ -464,7 +464,8 @@ class _Graphs:
     (:func:`~geomapnet_tpu_torch.utils.cuda_graph.capture`, with its
     warm-up), the recurrence's in the trunk's memory pool. A replay
     launches each program whole: the host no longer enqueues the trunk's
-    kernels and the recurrence's two a step and direction one by one."""
+    kernels one by one, nor the recurrence's (a memset, the persistent LSTM
+    kernel, ``fc_pose``)."""
 
     def __init__(self, trunk: nn.Module, recurrence: nn.Module,
                  frame: torch.Tensor, window: int, features: int):

@@ -15,7 +15,10 @@ trunk program.
 - ``serving.stream_frames`` counts each frame through the trunk once and
   each window's frames through the recurrence;
 - on a card (``-m cuda``), a session that replays CUDA graphs for its full
-  windows gives the eager session's poses.
+  windows gives the eager session's poses; and a session of a ResNet-50
+  trunk (2048 features into an LSTM of 512 a direction, as ``cli.tools
+  export_model --model vidloc --trunk resnet50`` builds it) gives the
+  poses of the model's own forward, whose ``nn.LSTM`` runs on cuDNN.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from benchmark.reference import vidloc as ref
 from geomapnet_tpu_torch import serving
 from geomapnet_tpu_torch.models import VidLoc
 from geomapnet_tpu_torch.models.posenet import MapNet, PoseNet
-from geomapnet_tpu_torch.models.resnet import resnet18
+from geomapnet_tpu_torch.models.resnet import resnet18, resnet50
 from geomapnet_tpu_torch.ops.image import normalize
 
 T, H, W, HIDDEN = 7, 64, 80, 16
@@ -258,6 +261,38 @@ def test_graphed_steps_equal_the_eager_ones_on_card(model, frames,
                 want.abs().max()))
             assert _gap(got.cpu(), poses(max(0, i - T + 1), i)) <= TOL, i
         assert graphed._graphs is not None
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = before
+
+
+@pytest.mark.cuda
+def test_resnet50_stream_matches_the_model_on_card(frames):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the recurrence kernel runs there")
+    before = (torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dev = torch.device("cuda")
+        torch.manual_seed(4)
+        model = VidLoc(resnet50()).eval().to(dev)
+        assert (model.feature_extractor.out_features,
+                model.lstm.hidden_size) == (2048, 512)
+        blob = serving.export_inference(
+            copy.deepcopy(model), None, frame_shape=(H, W, 3),
+            dtype=torch.uint8, preprocess=preprocess, window=T)
+        session = serving.load_inference(blob, dev).session()
+        on_card = frames.to(dev)
+        session.open(on_card[:3])
+        with torch.inference_mode():
+            for i in range(3, 3 * T):
+                got = session.step(on_card[i])
+                lo = max(0, i - T + 1)
+                want = model(preprocess(on_card[lo:i + 1])[None])[0]
+                assert _gap(got.cpu(), want.double().cpu().numpy()) <= TOL, i
+        assert session._graphs is not None
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = before
