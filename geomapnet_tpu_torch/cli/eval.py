@@ -219,7 +219,10 @@ def evaluate(model: torch.nn.Module, dataset, device: torch.device,
     float32, before translations are un-normalized, with the
     ``pgo_weights`` {sax, saq, srx, srq} and ``fc_vos`` (all-pairs VOs).
     Its time is outside ``images_per_sec``, as in the JAX package, and is
-    returned as "pgo_secs" (host clock, results on the host).
+    returned as "pgo_secs" (host clock, results on the host). The result
+    then also holds every window's poses as the solve took them and as it
+    returned them, "pgo_input_poses" and "pgo_poses" ((S, T, 7) float64
+    [t, unit q], translations still normalized).
 
     A :class:`~geomapnet_tpu_torch.models.vidloc.VidLoc` ``model`` takes an
     MF dataset of clips and runs the tuple epoch (each clip's pose depends
@@ -460,7 +463,7 @@ def _evaluate(
     if use_device_cache:
         with span("eval.targets"):
             if is_tuple:
-                targ = np.stack([dataset._poses_for(ti) for ti in idx_mat])
+                targ = dataset._poses_for(idx_mat)
             else:
                 tt = getattr(frames_src, "target_transform", None)
                 targ = np.stack([
@@ -540,11 +543,15 @@ def _evaluate(
             vos_log = targ[:, steps:]
             vos7 = np.concatenate(
                 [vos_log[..., :3], qexp_np(vos_log[..., 3:])], axis=-1)
+            result["pgo_input_poses"] = out7
             out7 = optimize_poses_batch(
                 torch.from_numpy(out7).to(device, torch.float32),
                 torch.from_numpy(vos7).to(device, torch.float32),
                 fc=fc_vos, **(pgo_weights or {}),
             ).to("cpu", torch.float64).numpy()
+            result["pgo_poses"] = out7
+            # the returned window poses stay as PGO left them
+            out7 = out7.copy()
         result["pgo_secs"] = pgo.seconds
 
     with span("eval.errors"):

@@ -71,6 +71,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..data.composite import MF
 from ..models.vidloc import VidLoc
 
 __all__ = ["EpochPlan", "plan_epoch", "make_step", "run_epoch",
@@ -115,6 +116,10 @@ class EpochPlan:
 def tuple_index_matrix(dataset, is_tuple: bool) -> np.ndarray:
     """(S, T) frame indices of every sample: the MF tuples, or (S, 1) for a
     plain frame dataset."""
+    if (is_tuple and not dataset.sampler.variable_skip
+            and type(dataset).get_indices is MF.get_indices):
+        # MF's own tuples with fixed gaps: every one in one pass
+        return dataset.sampler.index_matrix().astype(np.int64)
     if is_tuple:
         return np.stack([dataset.get_indices(i)
                          for i in range(len(dataset))]).astype(np.int64)

@@ -83,13 +83,16 @@ class MF:
         return self.sampler.indices(index, rng)
 
     def _poses_for(self, idx: np.ndarray) -> np.ndarray:
+        """The pose block (T [+ P], 6) of a tuple's frame indices (T,), or
+        the blocks (S, T [+ P], 6) of a stack of tuples (S, T) in one pass
+        (``vo_func`` takes a stack of tuples' poses)."""
         poses = self.dset.poses[idx].astype(np.float32)
         if self.include_vos:
             vos = self.vo_func(poses).astype(np.float32)
             if self.real:  # absolute poses must come from GT
                 gt = self.dset.gt_idx[idx]
                 poses = self.gt_dset.poses[gt].astype(np.float32)
-            poses = np.concatenate([poses, vos], axis=0)
+            poses = np.concatenate([poses, vos], axis=-2)
         return poses
 
     def __getitem__(self, index: int):

@@ -3,7 +3,9 @@
 The data loaders attach measured/derived VOs to pose targets on the host
 (upstream dataset_loaders/composite.py:89-95 uses the torch "safe"
 functions); doing this in numpy avoids per-sample device dispatch. Semantics
-match the exact (unclamped) quaternion maps.
+match the exact (unclamped) quaternion maps. Each function takes one
+tuple's poses (T, 6) or a stack of tuples (..., T, 6), whose VOs it
+computes in one pass.
 
 A numpy copy of :mod:`geomapnet_tpu.data.vo_np` (that package cannot be
 imported without jax); tests/test_torch_import_isolation.py pins the
@@ -26,8 +28,8 @@ __all__ = ["vos_simple_np", "vos_logq_np", "vos_logq_fc_np"]
 
 
 def vos_simple_np(poses: np.ndarray) -> np.ndarray:
-    """(T, 6) -> (T-1, 6) naive subtraction (calc_vos_simple)."""
-    return poses[1:] - poses[:-1]
+    """(..., T, 6) -> (..., T-1, 6) naive subtraction (calc_vos_simple)."""
+    return poses[..., 1:, :] - poses[..., :-1, :]
 
 
 def _relative_logq(p0: np.ndarray, p1: np.ndarray) -> np.ndarray:
@@ -40,14 +42,13 @@ def _relative_logq(p0: np.ndarray, p1: np.ndarray) -> np.ndarray:
 
 
 def vos_logq_np(poses: np.ndarray) -> np.ndarray:
-    """(T, 6) -> (T-1, 6) SE(3) relative poses in the earlier frame
-    (calc_vos_safe, upstream common/pose_utils.py:276-288)."""
-    return _relative_logq(poses[:-1], poses[1:])
+    """(..., T, 6) -> (..., T-1, 6) SE(3) relative poses in the earlier
+    frame (calc_vos_safe, upstream common/pose_utils.py:276-288)."""
+    return _relative_logq(poses[..., :-1, :], poses[..., 1:, :])
 
 
 def vos_logq_fc_np(poses: np.ndarray) -> np.ndarray:
-    """(T, 6) -> (T*(T-1)//2, 6) all-pairs relative poses
+    """(..., T, 6) -> (..., T*(T-1)//2, 6) all-pairs relative poses
     (calc_vos_safe_fc, upstream common/pose_utils.py:290-304)."""
-    T = len(poses)
-    i, j = np.triu_indices(T, k=1)
-    return _relative_logq(poses[i], poses[j])
+    i, j = np.triu_indices(poses.shape[-2], k=1)
+    return _relative_logq(poses[..., i, :], poses[..., j, :])

@@ -26,6 +26,13 @@ Design, as in the JAX package:
   not positive definite raises ``ValueError`` (the JAX package returns
   NaNs there).
 
+Each iteration runs under the spans ``pgo.linearize`` (the batched
+Jacobian and residuals) and ``pgo.solve`` (the normal equations, the
+factorization, the solve and the manifold update), and the one ``info``
+readback, the solve's only sync, under ``pgo.check``
+(:mod:`geomapnet_tpu_torch.utils.trace`; the spans add none). ``solves``
+counts the batched solves run, their windows and their iterations.
+
 The dtype follows the input, promoted to at least float32. The entry
 points take a ``device``: tensors stay on theirs when it is None, and numpy
 arrays then go to the card.
@@ -40,13 +47,19 @@ from torch.func import jacfwd, vmap
 from ..geometry.quaternion import qinv, qmult_raw, rotate_vec_by_q
 from ..geometry.rotations import qinv_np, qmult_np
 from ..geometry.vo import pair_indices_fc
+from ..utils.trace import span
 
 __all__ = [
     "gauss_newton_pgo",
     "optimize_poses",
     "optimize_poses_batch",
     "chain_pairs",
+    "solves",
 ]
+
+# batched solves run in this process: calls, the windows they solved and
+# the Gauss-Newton iterations they ran
+solves = {"calls": 0, "windows": 0, "iterations": 0}
 
 
 def chain_pairs(n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -151,18 +164,26 @@ def _gauss_newton(poses, vos, pairs, variances, n_iters):
     x0 = torch.zeros((n, 6), dtype=dtype, device=dev)
     z = poses
     failed = torch.zeros(B, dtype=torch.bool, device=dev)
+    solves["calls"] += 1
+    solves["windows"] += B
     for _ in range(n_iters):
-        J, r = jac(x0, z, poses, vos)
-        J = J.reshape(B, r.shape[1], n * 6)
-        Jt = J.transpose(1, 2)
-        L, info = torch.linalg.cholesky_ex(Jt @ J)
-        failed |= info != 0
-        x = torch.cholesky_solve(-(Jt @ r.unsqueeze(-1)), L).reshape(B, n, 6)
-        # manifold update (pose_utils.py:550-573): t additive, q
-        # right-multiplied by the exponential of the increment
-        z = torch.cat([z[..., :3] + x[..., :3],
-                       qmult_raw(z[..., 3:], _qexp_gn(x[..., 3:]))], dim=-1)
-    bad = torch.nonzero(failed).flatten().tolist()
+        with span("pgo.linearize"):
+            J, r = jac(x0, z, poses, vos)
+        with span("pgo.solve"):
+            J = J.reshape(B, r.shape[1], n * 6)
+            Jt = J.transpose(1, 2)
+            L, info = torch.linalg.cholesky_ex(Jt @ J)
+            failed |= info != 0
+            x = torch.cholesky_solve(-(Jt @ r.unsqueeze(-1)), L).reshape(
+                B, n, 6)
+            # manifold update (pose_utils.py:550-573): t additive, q
+            # right-multiplied by the exponential of the increment
+            z = torch.cat([z[..., :3] + x[..., :3],
+                           qmult_raw(z[..., 3:], _qexp_gn(x[..., 3:]))],
+                          dim=-1)
+        solves["iterations"] += 1
+    with span("pgo.check"):
+        bad = torch.nonzero(failed).flatten().tolist()
     if bad:
         raise ValueError(
             f"PGO: the normal equations of windows {bad[:20]}"

@@ -317,3 +317,58 @@ def test_cli_pose_graph_matches_jax_main(scene, npz, tmp_path):
     jax_eval_module._SCAN_CACHE.clear()   # fault R1: no stale program
     want = jax_eval_module.main(argv)
     _assert_pgo_matches(got, want)
+
+
+class _Poses:
+    """A frame dataset of poses alone (drifted ones with their ground
+    truth's indices)."""
+
+    def __init__(self, poses):
+        self.poses = poses
+        self.gt_idx = np.arange(len(poses))
+
+    def __len__(self):
+        return len(self.poses)
+
+
+@pytest.mark.parametrize("vo_name", ["vos_simple_np", "vos_logq_np",
+                                     "vos_logq_fc_np"])
+@pytest.mark.parametrize("real", [False, True], ids=["vo", "real"])
+def test_stacked_targets_equal_each_tuples(vo_name, real):
+    """``MF._poses_for`` of a stack of tuples (eval's targets, one pass)
+    equals the stack of each tuple's, bit for bit, and each tuple's equals
+    the JAX package's."""
+    rng = np.random.RandomState(3)
+    gt = np.concatenate([np.cumsum(rng.randn(60, 3), 0),
+                         0.4 * rng.randn(60, 3)], 1)
+    drift = gt + 0.01 * np.cumsum(rng.randn(60, 6), 0)
+    kw = dict(steps=7, skip=4, include_vos=True, real=real)
+    ds = MF(_Poses(drift), gt_dataset=_Poses(gt),
+            vo_func=getattr(vo_np, vo_name), **kw)
+    jds = JaxMF(_Poses(drift), gt_dataset=_Poses(gt),
+                vo_func=getattr(jax_vo_np, vo_name), **kw)
+    idx = np.stack([ds.get_indices(i) for i in range(len(ds))])
+    got = ds._poses_for(idx)
+    each = np.stack([ds._poses_for(r) for r in idx])
+    assert got.dtype == np.float32 and got.shape == each.shape
+    np.testing.assert_array_equal(got, each)
+    np.testing.assert_array_equal(
+        each, np.stack([jds._poses_for(r) for r in idx]))
+
+
+@pytest.mark.parametrize("kw", [dict(steps=7, skip=150),
+                                dict(steps=3, skip=10, no_duplicates=True),
+                                dict(steps=2, skip=1),
+                                dict(steps=5, skip=4, variable_skip=True,
+                                     deterministic_indices=True)],
+                         ids=["pgo", "no_duplicates", "pairs", "variable"])
+def test_index_matrix_equals_each_tuples(kw):
+    """Eval's (S, T) index matrix, in one pass where the gaps are fixed,
+    equals the tuples ``get_indices`` draws one by one."""
+    from geomapnet_tpu_torch.cli.eval_epoch import tuple_index_matrix
+
+    ds = MF(_Poses(np.zeros((400, 6))), **kw)
+    got = tuple_index_matrix(ds, True)
+    assert got.dtype == np.int64 and got.shape == (len(ds), ds.steps)
+    np.testing.assert_array_equal(
+        got, np.stack([ds.get_indices(i) for i in range(len(ds))]))

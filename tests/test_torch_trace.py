@@ -8,7 +8,9 @@
   device cache, calibration, quantized heads, fused requant), the loader
   path with PGO, a two-step ``Trainer`` epoch and ``Inference.__call__``
   leave their ``gm.*`` ranges in the Chrome trace, each nested by time in
-  its parent, and the numbers the program returns (``images_per_sec``,
+  its parent (PGO's ``pgo.*`` inside ``eval.pgo``, its ``solves`` counting
+  windows and iterations, its window poses returned as the solve's input
+  and output), and the numbers the program returns (``images_per_sec``,
   ``upload_secs``, ``pgo_secs``, ``epoch_stats``) are the spans' seconds:
   exactly, on a stepped clock put in the spans' place, whose seconds for a
   span follow from the spans the trace puts inside it.
@@ -29,6 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 from geomapnet_tpu_torch import serving
 from geomapnet_tpu_torch.cli.config import ExperimentConfig
 from geomapnet_tpu_torch.cli.eval import evaluate
+from geomapnet_tpu_torch.cli.eval_epoch import tuple_index_matrix
 from geomapnet_tpu_torch.data.composite import MF
 from geomapnet_tpu_torch.data.synthetic import SyntheticScene
 from geomapnet_tpu_torch.losses.criterion import MapNetCriterion
@@ -57,6 +60,8 @@ EVAL_PARENT = {
     "quant.build": "eval.serving_tree",
     "eval.readback": "eval.epoch",
 }
+# the spans inside eval.pgo, and how many a call of ten iterations opens
+PGO_SPANS = {"pgo.linearize": 10, "pgo.solve": 10, "pgo.check": 1}
 # the stepped clock's tick
 STEP_NS = 1_000_000
 
@@ -204,8 +209,10 @@ def test_loader_evaluate_with_pgo_spans(tmp_path, stepped_clock):
         MapNet(_posenet()), ds, CPU, batch_size=4, pose_graph=True,
         progress=False), tmp_path)
     assert set(spans) == {"eval.tuples", "eval.epoch", "eval.readback",
-                          "eval.pgo", "eval.errors"}
+                          "eval.pgo", "eval.errors"} | set(PGO_SPANS)
     assert _inside(spans["eval.readback"][0], spans["eval.epoch"][0])
+    for name in PGO_SPANS:
+        assert all(_inside(iv, spans["eval.pgo"][0]) for iv in spans[name])
     assert spans["eval.tuples"][0][1] <= spans["eval.epoch"][0][0]
     assert spans["eval.epoch"][0][1] <= spans["eval.pgo"][0][0]
     assert spans["eval.pgo"][0][1] <= spans["eval.errors"][0][0]
@@ -213,6 +220,57 @@ def test_loader_evaluate_with_pgo_spans(tmp_path, stepped_clock):
     assert res["images_per_sec"] == len(ds) * ds.steps / _stepped(
         spans["eval.epoch"][0], spans)
     assert "upload_secs" not in res
+
+
+def test_pgo_spans_counts_and_window_poses(tmp_path, monkeypatch):
+    """A pose-graph eval opens each iteration's ``pgo.linearize`` and then
+    ``pgo.solve``, and one ``pgo.check`` after the last, all inside
+    ``eval.pgo``; ``solves`` counts the call, its S windows and its ten
+    iterations; the returned window poses are the solve's input and
+    output, and a run without the pose graph returns neither."""
+    from geomapnet_tpu_torch.cli import eval as cli_eval
+    from geomapnet_tpu_torch.pgo import pose_graph
+
+    seen = {}
+    real = cli_eval.optimize_poses_batch
+
+    def recorded(poses, vos, **kw):
+        out = real(poses, vos, **kw)
+        seen.update(poses=poses.clone(), vos=vos.clone(), out=out.clone())
+        return out
+
+    monkeypatch.setattr(cli_eval, "optimize_poses_batch", recorded)
+    ds = _scene(16, include_vos=True)
+    S, T = len(ds), ds.steps
+    before = dict(pose_graph.solves)
+    res, spans = _profiled(lambda: evaluate(
+        MapNet(_posenet()), ds, CPU, batch_size=4, pose_graph=True,
+        progress=False), tmp_path)
+    assert {k: v - before[k] for k, v in pose_graph.solves.items()} == {
+        "calls": 1, "windows": S, "iterations": 10}
+    assert {n: len(spans[n]) for n in PGO_SPANS} == PGO_SPANS
+    (pgo,) = spans["eval.pgo"]
+    lin, sol = sorted(spans["pgo.linearize"]), sorted(spans["pgo.solve"])
+    (check,) = spans["pgo.check"]
+    steps = [iv for pair in zip(lin, sol) for iv in pair] + [check]
+    assert all(a[1] <= b[0] for a, b in zip(steps, steps[1:]))
+    assert _inside(steps[0], pgo) and _inside(steps[-1], pgo)
+    for k in ("pgo_input_poses", "pgo_poses"):
+        assert res[k].shape == (S, T, 7) and res[k].dtype == np.float64
+    np.testing.assert_array_equal(res["pgo_input_poses"].astype(np.float32),
+                                  seen["poses"].numpy())
+    np.testing.assert_array_equal(res["pgo_poses"],
+                                  seen["out"].double().numpy())
+    assert seen["vos"].shape == (S, T - 1, 7)
+    # the errors' middle-frame poses come from the solve's output (no pose
+    # statistics: translations as they are)
+    mid = tuple_index_matrix(ds, True)[:, T // 2]
+    np.testing.assert_array_equal(res["pred_poses"][mid],
+                                  res["pgo_poses"][:, T // 2])
+    plain = evaluate(MapNet(_posenet()), ds, CPU, batch_size=4,
+                     progress=False)
+    assert not {"pgo_input_poses", "pgo_poses", "pgo_secs"} & set(plain)
+    assert pose_graph.solves["calls"] == before["calls"] + 1
 
 
 def test_trainer_epoch_spans(tmp_path, stepped_clock):
